@@ -1,0 +1,344 @@
+"""Top-level codec: encode() / decode().
+
+Pipeline of the batched path (the JAX package's `encode_batched`):
+  native threshold selection + ROI masks -> region extraction -> split score
+  and SLIC per region on the device -> tier-1 pair table, eps-CC and
+  oversized splits -> tiers 2/3 composed on the cluster table, palette
+  refinement and refit -> DEFLATE container.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from roibasedimagecompression_torch import config as cfg
+from roibasedimagecompression_torch import native
+from roibasedimagecompression_torch.io import container as C
+from roibasedimagecompression_torch.models import quantize_batched as QB
+from roibasedimagecompression_torch.models import refine as RF
+from roibasedimagecompression_torch.models import segment as SEG
+from roibasedimagecompression_torch.utils import device as DEV
+from roibasedimagecompression_torch.utils.timing import stage_timer
+
+
+def _extract_and_assign(roi_mask, nonroi_mask, min_size):
+    """Region extraction + small-ROI demotion."""
+    roi_regions = SEG.extract_regions(roi_mask, "roi")
+    nonroi_regions = SEG.extract_regions(nonroi_mask, "nonroi")
+    return SEG.reassign_small_roi(roi_regions, nonroi_regions, min_size)
+
+
+def build_segment_maps_many(images: list, regions_per_image: list,
+                            config: cfg.CodecConfig, device) -> list:
+    """Rasterize per-region SLIC segments into global (h, w) id maps for a
+    batch of images.
+
+    Returns (seg_map, seg_quality (n+1,), seg_group (n+1,)) per image, with
+    1=roi, 2=nonroi group ids.  ROI regions rasterize last, so they win the
+    buffer-zone overlaps.  All regions of all images pool into the same
+    split-score and SLIC buckets; same-shape images go to the device once,
+    with one region-id raster per kind, and crops are sliced there.
+    """
+    flat_regions = []  # (image_idx, region), nonroi first then roi per image
+    for k, (roi_regions, nonroi_regions) in enumerate(regions_per_image):
+        for region in list(nonroi_regions) + list(roi_regions):
+            flat_regions.append((k, region))
+
+    crops, masks = [], []
+    for k, region in flat_regions:
+        minr, minc, maxr, maxc = region.bbox
+        crops.append(images[k][minr:maxr, minc:maxc])
+        masks.append(region.bbox_mask)
+
+    dbatch = None
+    sources = None
+    if len({im.shape for im in images}) == 1 and 0 < len(flat_regions) < 65535:
+        h, w = images[0].shape[:2]
+        reg_a = np.zeros((len(images), h, w), np.int32)  # nonroi regions
+        reg_b = np.zeros((len(images), h, w), np.int32)  # roi regions
+        sources = []
+        for j, (k, region) in enumerate(flat_regions):
+            minr, minc, maxr, maxc = region.bbox
+            kind = 1 if region.kind == "roi" else 0
+            target = reg_b if kind else reg_a
+            target[k, minr:maxr, minc:maxc][region.bbox_mask] = j + 1
+            sources.append((k, minr, minc, maxr - minr, maxc - minc, j + 1, kind))
+        with stage_timer("seg.upload"):
+            dbatch = SEG.DeviceBatch(
+                np.stack([np.asarray(im, np.uint8) for im in images]), reg_a, reg_b, device
+            )
+
+    n_segs = SEG.optimal_segments_many(crops, masks, device, sources=sources, dbatch=dbatch)
+    labels_list = SEG.region_segments_many(
+        crops, masks, n_segs, device,
+        compactness=config.slic_compactness, sigma=config.slic_sigma,
+        sources=sources, dbatch=dbatch,
+    )
+
+    results = []
+    pos = 0
+    for k, (roi_regions, nonroi_regions) in enumerate(regions_per_image):
+        h, w = images[k].shape[:2]
+        seg_map = np.zeros((h, w), np.int32)
+        qualities = [0.0]
+        groups = [0]
+        next_id = 1
+        for region in list(nonroi_regions) + list(roi_regions):
+            labels = labels_list[pos]
+            pos += 1
+            n_local = int(labels.max())
+            if n_local == 0:
+                continue
+            minr, minc, maxr, maxc = region.bbox
+            view = seg_map[minr:maxr, minc:maxc]
+            sel = labels > 0
+            view[sel] = labels[sel] + (next_id - 1)
+            q = config.roi_quality if region.kind == "roi" else config.nonroi_quality
+            g = 1 if region.kind == "roi" else 2
+            qualities.extend([q] * n_local)
+            groups.extend([g] * n_local)
+            next_id += n_local
+        results.append(
+            (seg_map, np.asarray(qualities, np.float64), np.asarray(groups, np.int32))
+        )
+    return results
+
+
+def build_segment_map(image_rgb, roi_regions, nonroi_regions, config, device):
+    """Single-image segment map (see build_segment_maps_many)."""
+    return build_segment_maps_many(
+        [image_rgb], [(roi_regions, nonroi_regions)], config, device
+    )[0]
+
+
+def tiers23_palette_indices(
+    table: dict,
+    seg_group: np.ndarray,
+    image_of_seg: np.ndarray,
+    n_images: int,
+    shape: tuple,
+    config: cfg.CodecConfig,
+    device,
+) -> list:
+    """Tiers 2/3 + final palette, composed on the tier-1 CLUSTER table.
+
+    Each tier-1 cluster paints one uint8 color, so the tier-2 problem's
+    palette is the unique (problem, color) set over cluster colors, tier-3's
+    the unique (image, tier-2 color) set, and the final palette the unique
+    tier-3 colors: tables of cluster-count length.  Pixels are touched once,
+    in the final palette-index paint.
+
+    Returns a list of (palette (m, 3) uint8, indices (h, w) minimal unsigned
+    dtype) per image of the stacked table.
+    """
+    h, w = shape
+    b = n_images
+    cop = table["cluster_of_pair"]
+    cluster_colors = table["cluster_colors"]
+    n_clusters = len(cluster_colors)
+
+    with stage_timer("t23.compose"):
+        seg_of_cluster = np.zeros(n_clusters, np.int64)
+        seg_of_cluster[cop] = table["seg_of_pair"]
+        w_cluster = np.bincount(cop, weights=table["pair_weights"], minlength=n_clusters)
+        img_of_cluster = image_of_seg[seg_of_cluster].astype(np.int64)
+        grp_of_cluster = seg_group[seg_of_cluster].astype(np.int64)
+        packed1 = (
+            (cluster_colors[:, 0].astype(np.int64) << 16)
+            | (cluster_colors[:, 1].astype(np.int64) << 8)
+            | cluster_colors[:, 2].astype(np.int64)
+        )
+        # ---- tier 2: one problem per (image, group) ----
+        prob2 = img_of_cluster * 2 + (grp_of_cluster - 1)
+        uniq2, inv2 = QB._unique_inverse(prob2 << 24 | packed1)
+        w2 = np.bincount(inv2, weights=w_cluster)
+        qual2 = [
+            config.roi_tier2_quality if p % 2 == 0 else config.nonroi_tier2_quality
+            for p in range(2 * b)
+        ]
+    out2 = QB.cluster_pair_table(
+        uniq2, w2, qual2, device, seed=config.seed,
+        split_method=config.split_method, split_margin=config.split_margin,
+        weighted=config.weighted_palette,
+    )
+    with stage_timer("t23.compose"):
+        c2_packed = (
+            (out2[:, 0].astype(np.int64) << 16)
+            | (out2[:, 1].astype(np.int64) << 8)
+            | out2[:, 2].astype(np.int64)
+        )[inv2]
+        # ---- tier 3: one problem per image ----
+        uniq3, inv3 = QB._unique_inverse(img_of_cluster << 24 | c2_packed)
+        w3 = np.bincount(inv3, weights=w_cluster)
+    out3 = QB.cluster_pair_table(
+        uniq3, w3, [config.image_quality] * b, device, seed=config.seed,
+        split_method=config.split_method, split_margin=config.split_margin,
+        weighted=config.weighted_palette,
+    )
+    with stage_timer("t23.compose"):
+        c3_packed = (
+            (out3[:, 0].astype(np.int64) << 16)
+            | (out3[:, 1].astype(np.int64) << 8)
+            | out3[:, 2].astype(np.int64)
+        )[inv3]
+        # ---- final palette per image (unique_colors semantics) ----
+        uniq4, inv4 = QB._unique_inverse(img_of_cluster << 24 | c3_packed)
+        img4 = (uniq4 >> 24).astype(np.int64)
+        col4 = uniq4 & 0xFFFFFF
+        starts4 = np.searchsorted(img4, np.arange(b + 1))
+        # Background black joins the palette exactly when the image has
+        # background pixels (or a tier-3 color is already black).
+        mask = table["mask"]
+        bg_counts = (h * w) - mask.reshape(b, h * w).sum(axis=1)
+        sizes4 = np.diff(starts4)
+        first_is_black = np.zeros(b, bool)
+        nonempty = sizes4 > 0
+        first_is_black[nonempty] = col4[starts4[:-1][nonempty]] == 0
+        add_black = (bg_counts > 0) & ~first_is_black
+        idx_of_cluster = (
+            inv4 - starts4[:-1][img_of_cluster] + add_black[img_of_cluster]
+        ).astype(np.int64)
+        results = []
+        for i in range(b):
+            pal_packed = col4[starts4[i] : starts4[i + 1]]
+            if add_black[i]:
+                pal_packed = np.concatenate([[0], pal_packed])
+            results.append(
+                np.stack(
+                    [(pal_packed >> 16) & 0xFF, (pal_packed >> 8) & 0xFF, pal_packed & 0xFF],
+                    axis=1,
+                ).astype(np.uint8)
+            )
+
+        # ---- global palette refinement on the (cluster color, mass) table ----
+        refine_iters = RF.effective_iters(config)
+        if refine_iters > 0:
+            with stage_timer("t23.refine"):
+                for i in range(b):
+                    sel = img_of_cluster == i
+                    if not sel.any():
+                        continue
+                    new_pal, assign = RF.refine_palette(
+                        cluster_colors[sel], w_cluster[sel], results[i], refine_iters,
+                    )
+                    results[i] = new_pal
+                    idx_of_cluster[sel] = assign
+
+        # ---- the one pixel pass: paint palette indices ----
+        idx_of_pair = idx_of_cluster[cop].astype(np.int32)
+        inverse = table["inverse"]
+        n_masked = (h * w) - bg_counts
+        offs = np.concatenate([[0], np.cumsum(n_masked)])
+        out = []
+        for i in range(b):
+            pal = results[i]
+            idx_map = np.zeros((h, w), C.min_index_dtype(max(len(pal) - 1, 0)))
+            native.paint_masked_indices(
+                idx_of_pair, inverse[offs[i] : offs[i + 1]], mask[i * h : (i + 1) * h], idx_map
+            )
+            out.append((pal, idx_map))
+    return out
+
+
+def _coerce_rgb(image: np.ndarray) -> np.ndarray:
+    """Accept (h, w), (h, w, 1), (h, w, 3) or (h, w, 4) uint8 input."""
+    image = np.asarray(image, dtype=np.uint8)
+    if image.ndim == 2:
+        image = np.stack([image] * 3, axis=-1)
+    elif image.shape[-1] == 1:
+        image = np.repeat(image, 3, axis=-1)
+    elif image.shape[-1] == 4:
+        image = image[..., :3]
+    if image.ndim != 3 or image.shape[-1] != 3:
+        raise ValueError(f"expected an RGB image, got shape {image.shape}")
+    return np.ascontiguousarray(image)
+
+
+_UNPORTED = {
+    "fast_edges": "ROADMAP A9 (fast_edges / low_latency)",
+    "region_fusion": "ROADMAP A12 (region fusion)",
+    "fill_black_holes": "ROADMAP A12 (fill_black_holes and the canvas tiers path)",
+    "weighted_split": "ROADMAP A12 (weighted_split)",
+}
+
+
+def _check_ported(config: cfg.CodecConfig) -> None:
+    if not config.batched:
+        raise NotImplementedError(
+            "batched=False (the reference-shaped loop) is not ported yet: ROADMAP A12"
+        )
+    for field, item in _UNPORTED.items():
+        if getattr(config, field):
+            raise NotImplementedError(f"{field} is not ported yet: {item}")
+    if config.split_method not in ("hybrid", "kmeans"):
+        raise NotImplementedError(
+            f"split_method={config.split_method!r} is not ported yet: ROADMAP A12"
+        )
+
+
+def encode_batched(image_rgb: np.ndarray, config: cfg.CodecConfig, device) -> bytes:
+    """Batched encode path: device-bucketed tier 1, table-composed tiers 2/3."""
+    from roibasedimagecompression_torch.models import roi_fused as ROI
+    from roibasedimagecompression_torch.ops import canny as CANNY
+
+    image_rgb = _coerce_rgb(image_rgb)
+    h, w = image_rgb.shape[:2]
+    min_size = cfg.min_region_size(image_rgb.size)
+
+    with stage_timer("roi"):
+        if config.single_region:
+            roi_regions = [
+                SEG.Region(bbox=(0, 0, h, w), bbox_mask=np.ones((h, w), bool),
+                           area=h * w, kind="roi")
+            ]
+            nonroi_regions = []
+        else:
+            low, high = CANNY.select_thresholds_pair(image_rgb)
+            roi_mask, nonroi_mask = ROI.roi_masks_fast(image_rgb, config, low, high)
+            roi_regions, nonroi_regions = _extract_and_assign(roi_mask, nonroi_mask, min_size)
+
+    with stage_timer("segment"):
+        seg_map, seg_quality, seg_group = build_segment_map(
+            image_rgb, roi_regions, nonroi_regions, config, device
+        )
+
+    with stage_timer("tier1"):
+        table = QB.tier1_table(
+            image_rgb, seg_map, seg_quality, device, seed=config.seed,
+            weighted=config.weighted_palette, split_method=config.split_method,
+            split_margin=config.split_margin,
+        )
+
+    with stage_timer("tier23"):
+        if table is None:
+            # All-background image: one black entry.
+            palette = np.zeros((1, 3), np.uint8)
+            indices = np.zeros((h, w), np.uint8)
+        else:
+            image_of_seg = np.zeros(len(seg_quality), np.int32)
+            ((palette, indices),) = tiers23_palette_indices(
+                table, seg_group, image_of_seg, 1, (h, w), config, device
+            )
+        palette = RF.maybe_refit(image_rgb, palette, indices, config)
+
+    with stage_timer("container"):
+        return C.pack(palette, indices, level=config.container_level)
+
+
+def encode(image_rgb: np.ndarray, config: cfg.CodecConfig | None = None,
+           device=None) -> bytes:
+    """Encode an (h, w, 3) uint8 RGB image to .rhccq bytes.
+
+    device=None runs on CUDA (and raises without a card); pass "cpu" for the
+    CPU.
+    """
+    config = config or cfg.CodecConfig()
+    _check_ported(config)
+    return encode_batched(image_rgb, config, DEV.resolve(device))
+
+
+def decode(source) -> np.ndarray:
+    """Decode .rhccq bytes or a file path to (h, w, 3) uint8 RGB."""
+    if isinstance(source, (bytes, bytearray)):
+        return C.unpack(bytes(source)).to_rgb()
+    return C.decode_file(source)

@@ -1,0 +1,513 @@
+"""Batched tier-1 quantization: every segment's palette clustered at once.
+
+Segments are disjoint and black pixels never write during canvas merges, so
+tier 1 + the per-region and tier-2 merges collapse to a per-pixel map, and
+the eps-graph clustering of MANY segment palettes runs as one padded batch
+per bucket cap (block-diagonal by construction: one run per row).  Oversized
+clusters split level-synchronously: small ones by host PCA median cuts, large
+ones by batched device k-means.
+
+The pair tables, keys and bookkeeping are host numpy and the native runtime,
+as in the JAX package; the eps-CC sweeps run through the CUDA kernel on the
+card and through the native union-find on the CPU (both give the same
+run-local minimum-member labels, so the keys are identical), and k-means runs
+as torch ops on the caller's device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from roibasedimagecompression_torch import config as cfg
+from roibasedimagecompression_torch import native
+from roibasedimagecompression_torch.ops import cluster as CL
+from roibasedimagecompression_torch.ops.cuda import epscc as EPS
+from roibasedimagecompression_torch.utils.timing import stage_timer
+
+_BUCKETS = (64, 256, 1024, 4096, 9999)  # eps-CC caps (>=10k goes to k-means)
+_SPLIT_CAPS = (64, 256, 1024, 4096, 16384, 65536)
+_HYBRID_CUTOFF = 64
+
+
+def _unique_inverse(keys: np.ndarray, return_counts: bool = False):
+    return native.unique_inverse_i64(keys, return_counts)
+
+
+def _runs_of_sorted(sorted_arr: np.ndarray):
+    """(values, starts, counts) of equal runs in an already-sorted array."""
+    _, starts, sizes = native.runs_of_sorted_i64(sorted_arr)
+    return sorted_arr[starts], starts, sizes
+
+
+def _unpack(colors_packed: np.ndarray) -> np.ndarray:
+    return np.stack(
+        [
+            (colors_packed >> 16) & 0xFF,
+            (colors_packed >> 8) & 0xFF,
+            colors_packed & 0xFF,
+        ],
+        axis=1,
+    ).astype(np.uint8)
+
+
+def _bucketize(sizes: np.ndarray, caps) -> dict:
+    """Group problem ids by the smallest cap that fits them."""
+    out: dict = {}
+    lo = 0
+    for cap in caps:
+        sel = np.flatnonzero((sizes <= cap) & (sizes > lo))
+        if len(sel):
+            out[cap] = sel
+        lo = cap
+    return out
+
+
+def _pad_kmax(k: int) -> int:
+    """Quantize k_max to powers of two (>= 2)."""
+    p = 2
+    while p < k:
+        p *= 2
+    return p
+
+
+def _assign_trivial_runs(cluster_keys, colors, starts, sizes_inout, eps,
+                         key_base) -> np.int64:
+    """One-component eps-CC shortcut: a run whose palette bbox diagonal is
+    <= eps is one component (the diagonal bounds every pairwise distance),
+    so it takes one key without a sweep.  The comparison is float32, like
+    the sweep's predicate.  Mutates `cluster_keys` and zeroes `sizes_inout`
+    for the runs it labels; returns the number of keys consumed."""
+    valid = np.flatnonzero(sizes_inout > 0)
+    if len(valid) == 0:
+        return np.int64(0)
+    n = len(colors)
+    st = starts[valid].astype(np.int64)
+    en = st + sizes_inout[valid]
+    # Segmented min/max over explicit [start, end) bounds (runs need not
+    # partition `colors`: tiers 2/3 skip pinned black pairs).
+    bounds = np.unique(np.concatenate([st, en[en < n]]))
+    seg_of_run = np.searchsorted(bounds, st)
+    cmin = np.minimum.reduceat(colors, bounds, axis=0)[seg_of_run]
+    cmax = np.maximum.reduceat(colors, bounds, axis=0)[seg_of_run]
+    diag2 = ((cmax - cmin).astype(np.float32) ** 2).sum(axis=1)
+    diag2[sizes_inout[valid] == 1] = 0.0
+    eps2 = eps[valid].astype(np.float32) ** 2
+    triv = valid[diag2 <= eps2]
+    if len(triv) == 0:
+        return np.int64(0)
+    flat_pos, flat_row, _ = native.flat_run_positions(starts[triv], sizes_inout[triv])
+    cluster_keys[flat_pos] = key_base + flat_row
+    sizes_inout[triv] = 0
+    return np.int64(len(triv))
+
+
+def _epscc_width(cap: int) -> int:
+    """Row width of an eps-CC bucket on the card: the cap, rounded up to the
+    kernel's 256-point tile above 256 (9999 -> 10240)."""
+    return cap if cap <= 256 else -(-cap // 256) * 256
+
+
+def _epscc_labels_device(colors, starts, sizes, eps, cap, device) -> np.ndarray:
+    """Run-major int32 labels of the runs through the eps-sweep kernel."""
+    b = len(starts)
+    n = _epscc_width(cap)
+    flat_pos, flat_row, within = native.flat_run_positions(starts, sizes)
+    pts = np.zeros((b, n, 3), np.float32)
+    pts[flat_row, within] = colors[flat_pos]
+    valid = np.zeros((b, n), bool)
+    valid[flat_row, within] = True
+    eps2 = np.asarray(eps, np.float32) ** 2
+    labels, _ = EPS.eps_components_rows(
+        torch.from_numpy(pts).to(device),
+        torch.from_numpy(valid).to(device),
+        torch.zeros((b, n), dtype=torch.int32, device=device),
+        torch.from_numpy(eps2).to(device),
+    )
+    return labels.cpu().numpy()[flat_row, within]
+
+
+def _epscc_assign_keys(cluster_keys, colors, color_of_pair, starts, sizes_masked,
+                       eps, key_base, device):
+    """Assign eps-CC cluster keys for every non-zero run, in place.
+
+    On CUDA every bucket goes through the eps-sweep kernel; on the CPU
+    through the native grid union-find.  Both give run-local minimum-member
+    labels, and the key arithmetic (key_base + row * (cap+1) + label over the
+    same bucket grid) is shared, so the keys are identical.  Returns the
+    advanced key_base.
+    """
+    for cap, ids in _bucketize(sizes_masked, _BUCKETS).items():
+        if torch.device(device).type == "cuda":
+            labels = _epscc_labels_device(
+                colors, starts[ids], sizes_masked[ids], eps[ids], cap, device
+            )
+        else:
+            labels = native.epscc_labels_runs(
+                color_of_pair, starts[ids], sizes_masked[ids], eps[ids]
+            )
+        flat_pos, flat_row, _ = native.flat_run_positions(starts[ids], sizes_masked[ids])
+        cluster_keys[flat_pos] = key_base + flat_row * np.int64(cap + 1) + labels
+        key_base += np.int64(len(ids)) * (cap + 1)
+    return key_base
+
+
+def tier1_table(
+    image_rgb: np.ndarray,
+    seg_map: np.ndarray,
+    seg_quality: np.ndarray,
+    device,
+    *,
+    seed: int = 42,
+    weighted: bool = True,
+    split_method: str = "kmeans",
+    split_margin: float = 1.0,
+) -> dict | None:
+    """Tier-1 clustering as a pair/cluster TABLE (no canvas paint).
+
+    Returns None when no pixel has a segment; otherwise a dict:
+      seg_of_pair     (n_pairs,) int32   segment id per unique pair
+      cluster_of_pair (n_pairs,) int64   dense tier-1 cluster id per pair
+      cluster_colors  (n_clusters, 3) u8 truncated cluster means
+      inverse         (n_masked,) int64  pair row per masked pixel (row-major)
+      mask            (h, w) bool        seg_map > 0
+      pair_weights    (n_pairs,) f64     pixel multiplicity per pair
+    """
+    with stage_timer("t1.pairs"):
+        mask = seg_map > 0
+        uniq, inverse, counts = native.pack_pairs(image_rgb, seg_map)
+        if len(uniq) == 0:
+            return None
+        # Black repair in C++: black pairs take their segment's darkest
+        # non-black color; the pair table compacts in place.
+        m = native.black_repair_pairs(uniq, counts, inverse)
+        counts = counts[:m]
+        seg_of_pair, color_of_pair, colors = native.split_pair_uniq(uniq[:m])
+    n_pairs = len(seg_of_pair)
+
+    # Pair table is sorted by (segment, color): contiguous runs per segment.
+    seg_ids, starts, sizes = _runs_of_sorted(seg_of_pair)
+    qualities = seg_quality[seg_ids]
+    # Reference n_colors counts the bbox-crop black too.
+    n_colors_law = sizes + 1
+    eps = 128.0 - 1.28 * qualities
+    eps[eps == 0] = 1.0
+    max_colors = np.ceil(
+        (n_colors_law - n_colors_law * qualities / 100.0) / qualities
+    ).astype(np.int64)
+    max_colors[max_colors == 0] = 1
+
+    cluster_keys = np.full(n_pairs, -1, np.int64)
+    key_base = np.int64(0)
+
+    with stage_timer("t1.epscc"):
+        big = np.flatnonzero(sizes >= cfg.KMEANS_SWITCH_COLORS)
+        small_sizes = sizes.copy()
+        small_sizes[big] = 0
+        key_base += _assign_trivial_runs(
+            cluster_keys, colors, starts, small_sizes, eps, key_base
+        )
+        key_base = _epscc_assign_keys(
+            cluster_keys, colors, color_of_pair, starts, small_sizes, eps,
+            key_base, device,
+        )
+        if len(big):
+            labs = CL.kmeans_host_many(
+                [
+                    (
+                        colors[starts[p] : starts[p] + sizes[p]],
+                        cfg.kmeans_n_clusters(int(sizes[p]), qualities[p]),
+                    )
+                    for p in big
+                ],
+                device, seed=seed,
+            )
+            for pid, lab in zip(big, labs):
+                s, n = starts[pid], sizes[pid]
+                cluster_keys[s : s + n] = key_base + lab
+                key_base += np.int64(lab.max()) + 1
+        _, cluster_of_pair = _unique_inverse(cluster_keys)
+        next_cluster = int(cluster_of_pair.max()) + 1
+
+    pair_weights = counts.astype(np.float64)
+
+    with stage_timer("t1.split"):
+        pair_max_colors = np.repeat(max_colors, sizes)
+        cluster_of_pair, next_cluster = _split_oversized_batched(
+            colors, cluster_of_pair, pair_max_colors, next_cluster, seed, device,
+            method=split_method, margin=split_margin,
+        )
+
+    with stage_timer("t1.means"):
+        cluster_colors = native.cluster_means_u8(
+            cluster_of_pair, color_of_pair, pair_weights if weighted else None,
+            next_cluster,
+        )
+    return {
+        "seg_of_pair": seg_of_pair,
+        "cluster_of_pair": cluster_of_pair,
+        "cluster_colors": cluster_colors,
+        "inverse": inverse,
+        "mask": mask,
+        "pair_weights": pair_weights,
+    }
+
+
+def cluster_pair_table(
+    uniq: np.ndarray,
+    weights: np.ndarray | None,
+    quality_list,
+    device,
+    *,
+    seed: int = 42,
+    split_method: str = "kmeans",
+    split_margin: float = 1.0,
+    weighted: bool = True,
+) -> np.ndarray:
+    """Cluster a pooled, deduped (problem, color) pair table.
+
+    `uniq` is the sorted int64 key table `prob << 24 | packed_rgb`; `weights`
+    the per-pair pixel multiplicities; `quality_list` maps problem id ->
+    quality.  Black pairs are pinned (never clustered, counted by the
+    n-colors law).  Returns the (n_pairs, 3) uint8 output color per pair.
+    """
+    prob_of_pair = (uniq >> 24).astype(np.int32)
+    color_of_pair = (uniq & 0xFFFFFF).astype(np.int32)
+    colors = _unpack(color_of_pair).astype(np.float32)
+    n_pairs = len(uniq)
+
+    prob_ids, starts, sizes = _runs_of_sorted(prob_of_pair)
+    # n counts black even when absent from the pixels (the canvas background
+    # black joins the merged palette).
+    first_key = color_of_pair[starts]
+    has_black = first_key == 0  # black (0) sorts first in a run
+    n_black_incl = sizes + (~has_black)
+    qualities = np.asarray([quality_list[p] for p in prob_ids], np.float64)
+    eps = 128.0 - 1.28 * qualities
+    eps[eps == 0] = 1.0
+    max_colors = np.ceil(
+        (n_black_incl - n_black_incl * qualities / 100.0) / qualities
+    ).astype(np.int64)
+    max_colors[max_colors == 0] = 1
+
+    is_black_pair = color_of_pair == 0
+    nb_sizes = sizes - has_black
+    nb_starts = starts + has_black
+
+    cluster_keys = np.full(n_pairs, -1, np.int64)
+    key_base = np.int64(0)
+
+    with stage_timer("t23.epscc"):
+        big = np.flatnonzero(nb_sizes >= cfg.KMEANS_SWITCH_COLORS)
+        small_sizes = nb_sizes.copy()
+        small_sizes[big] = 0
+        key_base += _assign_trivial_runs(
+            cluster_keys, colors, nb_starts, small_sizes, eps, key_base
+        )
+        key_base = _epscc_assign_keys(
+            cluster_keys, colors, color_of_pair, nb_starts, small_sizes, eps,
+            key_base, device,
+        )
+        if len(big):
+            labs = CL.kmeans_host_many(
+                [
+                    (
+                        colors[nb_starts[r] : nb_starts[r] + nb_sizes[r]],
+                        cfg.kmeans_n_clusters(int(nb_sizes[r]), qualities[r]),
+                    )
+                    for r in big
+                ],
+                device, seed=seed,
+            )
+            for row, lab in zip(big, labs):
+                s, m = nb_starts[row], nb_sizes[row]
+                cluster_keys[s : s + m] = key_base + lab
+                key_base += np.int64(lab.max()) + 1
+        # Every black pair is its own singleton cluster (pinned verbatim).
+        black_rows = np.flatnonzero(is_black_pair)
+        cluster_keys[black_rows] = key_base + np.arange(len(black_rows))
+        _, cluster_of_pair = _unique_inverse(cluster_keys)
+        next_cluster = int(cluster_of_pair.max()) + 1
+
+    with stage_timer("t23.split"):
+        pair_limits = np.repeat(max_colors, sizes)
+        cluster_of_pair, next_cluster = _split_oversized_batched(
+            colors, cluster_of_pair, pair_limits, next_cluster, seed, device,
+            method=split_method, margin=split_margin,
+        )
+
+    w = weights.astype(np.float64) if (weighted and weights is not None) else None
+    cluster_colors = native.cluster_means_u8(
+        cluster_of_pair, color_of_pair, w, next_cluster
+    )
+    pair_colors = cluster_colors[cluster_of_pair]
+    pair_colors[black_rows] = 0
+    return pair_colors
+
+
+def _pca_chunk_ranks(colors, order, starts, sizes, oversized):
+    """(pos, flat_row, rank, n): within-cluster ranks of every point of the
+    oversized clusters along each cluster's own principal axis (12 rounds of
+    batched power iteration, BT.601 luma for degenerate clusters, one global
+    lexsort)."""
+    n = sizes[oversized].astype(np.int64)
+    flat_pos, flat_row, _ = native.flat_run_positions(starts[oversized], sizes[oversized])
+    pos = order[flat_pos]
+    pts = colors[pos].astype(np.float64)
+
+    m = len(n)
+    sums = np.stack(
+        [np.bincount(flat_row, weights=pts[:, c], minlength=m) for c in range(3)],
+        axis=1,
+    )
+    mu = sums / n[:, None]
+    d = pts - mu[flat_row]
+    cov = np.zeros((m, 3, 3))
+    for a in range(3):
+        for b in range(a, 3):
+            s = np.bincount(flat_row, weights=d[:, a] * d[:, b], minlength=m)
+            cov[:, a, b] = s
+            cov[:, b, a] = s
+    v = np.full((m, 3), 0.577350269)
+    for _ in range(12):
+        v = np.einsum("mij,mj->mi", cov, v)
+        nv = np.linalg.norm(v, axis=1, keepdims=True)
+        small = nv[:, 0] < 1e-12
+        if small.any():
+            v[small] = [0.299, 0.587, 0.114]
+            nv[small] = 1.0
+        v /= nv
+    proj = np.einsum("ij,ij->i", d, v[flat_row])
+
+    sidx = np.lexsort((proj, flat_row))  # stable: ties keep color order
+    off = np.zeros(m, np.int64)
+    np.cumsum(n[:-1], out=off[1:])
+    rank = np.empty(len(pos), np.int64)
+    rank[sidx] = np.arange(len(pos), dtype=np.int64) - np.repeat(off, n)
+    return pos, flat_row, rank, n
+
+
+def _kmeans_bucket(colors, order, starts_b, sizes_b, ks_b, cap, k_max, seed, device):
+    """Device k-means over runs of the ORDER permutation: row r's points are
+    colors[order[starts_b[r] + j]], j < sizes_b[r].  Returns (B, cap) labels."""
+    b = len(starts_b)
+    flat_pos, flat_row, within = native.flat_run_positions(starts_b, sizes_b)
+    pts = np.zeros((b, cap, 3), np.float32)
+    pts[flat_row, within] = colors[order[flat_pos]]
+    valid = np.zeros((b, cap), bool)
+    valid[flat_row, within] = True
+    labels = CL.kmeans_rows(
+        torch.from_numpy(pts).to(device), torch.from_numpy(valid).to(device),
+        ks_b, k_max=k_max, iters=10, seed=seed, plusplus=k_max <= 256,
+    )
+    return labels.cpu().numpy()
+
+
+def _split_oversized_batched(colors, cluster_of_pair, pair_max_colors,
+                             next_cluster, seed, device, method="kmeans",
+                             margin=1.0):
+    """Split clusters above their per-segment max size, level-synchronously.
+
+    Each level gathers ALL oversized clusters, buckets them by size and runs
+    one batched k-means per bucket (method "kmeans"); "hybrid" first resolves
+    clusters of <= 64 colors with host PCA median cuts run to limit/margin
+    within the level.  Only pairs of just-split clusters can still be
+    oversized, so each level sorts that frontier only; ids are compacted once
+    after the loop (split keys exceed every live id, so the numbering equals
+    a per-level compaction).
+    """
+    if method not in ("kmeans", "hybrid"):
+        raise NotImplementedError(f"split_method={method!r} is not ported yet")
+    active = None
+    any_split = False
+    for _level in range(8):
+        if active is None:
+            order = native.argsort_i64(cluster_of_pair)
+        else:
+            if len(active) == 0:
+                break
+            order = active[native.argsort_i64(cluster_of_pair[active])]
+        _, starts, sizes = _runs_of_sorted(cluster_of_pair[order])
+        limits = pair_max_colors[order[starts]]
+        oversized = np.flatnonzero((sizes > limits) & (sizes > 2))
+        if len(oversized) == 0:
+            break
+        any_split = True
+        next_active = []
+        key_base = np.int64(next_cluster)
+
+        if method == "hybrid":
+            tiny = oversized[sizes[oversized] <= _HYBRID_CUTOFF]
+            if len(tiny):
+                flat_pos_t, _, _ = native.flat_run_positions(starts[tiny], sizes[tiny])
+                tiny_pos = order[flat_pos_t]
+                n_cuts = max(12, _HYBRID_CUTOFF.bit_length() + 2)
+                for _cut in range(n_cuts):
+                    o_t = tiny_pos[native.argsort_i64(cluster_of_pair[tiny_pos])]
+                    _, st_t, sz_t = _runs_of_sorted(cluster_of_pair[o_t])
+                    lim_t = np.maximum(
+                        1, -(-pair_max_colors[o_t[st_t]] // max(margin, 1.0))
+                    ).astype(np.int64)
+                    ov_t = np.flatnonzero((sz_t > lim_t) & (sz_t > 2))
+                    if len(ov_t) == 0:
+                        break
+                    pos2, row2, rank2, n2 = _pca_chunk_ranks(
+                        colors, o_t, st_t, sz_t, ov_t
+                    )
+                    child = rank2 >= (n2[row2] + 1) // 2
+                    cluster_of_pair[pos2] = key_base + row2 * 2 + child
+                    key_base += np.int64(2 * len(ov_t))
+                    tiny_pos = pos2
+                oversized = oversized[sizes[oversized] > _HYBRID_CUTOFF]
+                if len(oversized) == 0:
+                    next_cluster = int(key_base)
+                    active = np.empty(0, np.int64)
+                    continue
+
+        # n_splits law: min(max(2, ceil(n*margin/max)), n).
+        n = sizes[oversized]
+        lim = np.maximum(limits[oversized], 1)
+        ks = np.minimum(np.maximum(2, -(-(n * float(margin)).astype(np.int64) // lim)), n)
+
+        huge_rows = np.flatnonzero(sizes[oversized] > _SPLIT_CAPS[-1])
+        if len(huge_rows):
+            labs = CL.kmeans_host_many(
+                [
+                    (
+                        colors[order[starts[oversized[r]] : starts[oversized[r]] + sizes[oversized[r]]]],
+                        int(ks[r]),
+                    )
+                    for r in huge_rows
+                ],
+                device, seed=seed,
+            )
+            for row, lab in zip(huge_rows, labs):
+                cid = oversized[row]
+                s, m = starts[cid], sizes[cid]
+                cluster_of_pair[order[s : s + m]] = key_base + lab
+                key_base += np.int64(lab.max()) + 1
+                next_active.append(order[s : s + m])
+        with stage_timer("split.kmeans"):
+            for cap, rows in _bucketize(sizes[oversized], _SPLIT_CAPS).items():
+                ids = oversized[rows]
+                k_max = _pad_kmax(int(ks[rows].max()))
+                labels = _kmeans_bucket(
+                    colors, order, starts[ids], sizes[ids], ks[rows], cap, k_max,
+                    seed, device,
+                )
+                flat_pos, flat_row, within = native.flat_run_positions(
+                    starts[ids], sizes[ids]
+                )
+                cluster_of_pair[order[flat_pos]] = (
+                    key_base
+                    + flat_row * (k_max + 1)
+                    + labels[flat_row, within].astype(np.int64)
+                )
+                key_base += np.int64(len(ids)) * (k_max + 1)
+                next_active.append(order[flat_pos])
+        next_cluster = int(key_base)
+        active = np.concatenate(next_active) if next_active else np.empty(0, np.int64)
+    if any_split:
+        _, cluster_of_pair = _unique_inverse(cluster_of_pair)
+        next_cluster = int(cluster_of_pair.max()) + 1
+    return cluster_of_pair, next_cluster

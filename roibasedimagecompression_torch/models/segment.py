@@ -1,0 +1,364 @@
+"""Region extraction and sub-region segmentation (split score + SLIC).
+
+Regions are connected components of the ROI / non-ROI masks; each region's
+split score (color + texture complexity) sets its SLIC segment count through
+the logistic window law; SLIC runs at a <= 500 px working resolution and its
+labels are upsampled back.  The split score runs batched on the device, one
+call per shape bucket; the bucket geometry (zeros beyond the bbox inside a
+`_pow2_bucket` window, transposed landscape regions) is part of the result,
+because the Sobel, LBP and blur borders see the padded window.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from roibasedimagecompression_torch import config as cfg
+from roibasedimagecompression_torch import native
+from roibasedimagecompression_torch.ops import colors as COL
+from roibasedimagecompression_torch.ops import conv as CONV
+from roibasedimagecompression_torch.ops import lbp as LBP
+from roibasedimagecompression_torch.ops import slic as SLIC
+from roibasedimagecompression_torch.utils.timing import stage_timer
+
+
+@dataclasses.dataclass
+class Region:
+    """A connected region of the ROI or non-ROI mask."""
+
+    bbox: tuple  # (minr, minc, maxr, maxc), exclusive max
+    bbox_mask: np.ndarray  # (bh, bw) bool
+    area: int
+    kind: str  # "roi" | "nonroi"
+
+
+def extract_regions(mask: np.ndarray, kind: str) -> list:
+    """Connected components (8-conn) of a binary mask -> Region list."""
+    mask = np.asarray(mask) != 0
+    if not mask.any():
+        return []
+    labels, n, _ = native.cc_label(mask, 8)
+    num = n + 1
+    if num <= 1:
+        return []
+    areas, bboxes = native.component_stats(labels, num)
+    out = []
+    for lab in range(1, num):
+        minr, minc, maxr, maxc = bboxes[lab]
+        out.append(
+            Region(
+                bbox=(int(minr), int(minc), int(maxr), int(maxc)),
+                bbox_mask=labels[minr:maxr, minc:maxc] == lab,
+                area=int(areas[lab]),
+                kind=kind,
+            )
+        )
+    return out
+
+
+def reassign_small_roi(roi_regions: list, nonroi_regions: list, min_size: int):
+    """ROI regions below min_size become non-ROI."""
+    big = [r for r in roi_regions if r.area >= min_size]
+    small = [
+        dataclasses.replace(r, kind="nonroi") for r in roi_regions if r.area < min_size
+    ]
+    return big, nonroi_regions + small
+
+
+class DeviceBatch:
+    """Same-shape image batch and two region-id rasters on the device.
+
+    ROI and non-ROI regions can overlap in the 3-px buffer zone, hence one
+    raster per kind.  Crops are sliced from these tensors, so the batch
+    crosses to the device once per encode.
+    """
+
+    def __init__(self, images: np.ndarray, reg_nonroi: np.ndarray,
+                 reg_roi: np.ndarray, device):
+        self.img = torch.from_numpy(np.ascontiguousarray(images)).to(device)
+        self.reg = (
+            torch.from_numpy(np.ascontiguousarray(reg_nonroi.astype(np.int32))).to(device),
+            torch.from_numpy(np.ascontiguousarray(reg_roi.astype(np.int32))).to(device),
+        )
+
+    def crop(self, src, transposed: bool):
+        """(rgb (h0, w0, 3) u8, mask (h0, w0) bool) for one region, in the
+        canonical (portrait) orientation."""
+        k, top, left, h0, w0, rid, kind = src
+        rgb = self.img[k, top : top + h0, left : left + w0]
+        mask = self.reg[kind][k, top : top + h0, left : left + w0] == rid
+        if transposed:
+            rgb, mask = rgb.transpose(0, 1), mask.transpose(0, 1)
+        return rgb, mask
+
+
+def _pow2_bucket(n: int, minimum: int = 64) -> int:
+    """Split-score bucket dim: tiers (256, 512, 768, 1024), then multiples of 64."""
+    for tier in (256, 512, 768, 1024):
+        if n <= tier:
+            return tier
+    return -(-n // 64) * 64
+
+
+def _split_score_batch(rgb: torch.Tensor, mask: torch.Tensor):
+    """Split score of each row of a (B, H, W, 3) uint8 / (B, H, W) bool
+    bucket: (overall, color, texture, count), each (B,) float32."""
+    maskf = mask.float()
+    count = maskf.sum(dim=(1, 2))
+    safe = torch.clamp(count, min=1.0)
+
+    def masked_mean(x):
+        return (x * maskf).sum(dim=(1, 2)) / safe
+
+    def masked_std(x):
+        mu = masked_mean(x)
+        return torch.sqrt(torch.clamp(masked_mean(x * x) - mu * mu, min=0.0))
+
+    gray = COL.rgb_to_gray_skimage(rgb)
+    lab = COL.rgb_to_lab(rgb)
+
+    l_std = masked_std(lab[..., 0])
+    a_std = masked_std(lab[..., 1])
+    b_std = masked_std(lab[..., 2])
+    color_variance = (l_std / 100.0 + a_std / 128.0 + b_std / 128.0) / 3.0
+    # Reference quirk (split_score.py:48-51): grad_x and grad_y are BOTH the
+    # sobel magnitude, so the "gradient magnitude" is sqrt(2)*|sobel| summed
+    # over the three LAB channels.
+    gm = torch.zeros_like(gray)
+    for ch in range(3):
+        s = CONV.sobel_skimage(lab[..., ch])
+        gm = gm + torch.sqrt(s * s + s * s)
+    gradient_score = masked_mean(gm) / 3.0
+    color_score = torch.clamp(0.7 * color_variance + 0.3 * gradient_score, 0.0, 1.0)
+
+    lbp_codes = LBP.local_binary_pattern_uniform(gray).float()
+    lbp_hist = LBP.masked_histogram_density(lbp_codes, mask, 0.0, 10.0, 10)
+    lbp_entropy = -(lbp_hist * torch.log2(lbp_hist + 1e-8)).sum(dim=1)
+    lbp_score = torch.clamp(lbp_entropy / 3.0, 0.0, 1.0)
+
+    grad = CONV.sobel_skimage(gray)
+    grad_mu = masked_mean(grad)
+    grad_var = masked_mean(grad * grad) - grad_mu * grad_mu
+    grad_score = torch.clamp(grad_var * 50.0, 0.0, 1.0)
+
+    int_hist = LBP.masked_histogram_density(gray, mask, 0.0, 1.0, 32)
+    int_entropy = -(int_hist * torch.log2(int_hist + 1e-8)).sum(dim=1)
+    entropy_score = torch.clamp(int_entropy / 5.0, 0.0, 1.0)
+
+    std_score = torch.clamp(masked_std(gray) * 2.0, 0.0, 1.0)
+
+    texture_score = torch.clamp(
+        (lbp_score + grad_score + entropy_score + std_score) / 4.0, 0.0, 1.0
+    )
+    overall = 0.4 * color_score + 0.6 * texture_score
+    return overall, color_score, texture_score, count
+
+
+def _bucket_rows(rows, ph, pw, device):
+    """Stack (rgb, mask) crops into one zero-padded (B, ph, pw) bucket."""
+    b = len(rows)
+    rgb_b = torch.zeros((b, ph, pw, 3), dtype=torch.uint8, device=device)
+    mask_b = torch.zeros((b, ph, pw), dtype=torch.bool, device=device)
+    for r, (rgb, mask) in enumerate(rows):
+        h, w = mask.shape
+        rgb_b[r, :h, :w] = torch.as_tensor(rgb, device=device)
+        mask_b[r, :h, :w] = torch.as_tensor(mask, device=device)
+    return rgb_b, mask_b
+
+
+def split_scores_many(
+    crops: list, masks: list, device, sources: list | None = None,
+    dbatch: DeviceBatch | None = None,
+) -> list:
+    """Split scores, one batched device call per shape bucket.
+
+    Rows whose `sources` entry is set slice their crop from `dbatch`.
+    Returns a list of (overall, color, texture); regions under 100 px score 0.
+    """
+    n = len(crops)
+    out: list = [None] * n
+    if sources is None:
+        sources = [None] * n
+    # Orientation canonicalization (exact: every statistic is transpose-
+    # invariant) halves the number of buckets.
+    buckets: dict = {}
+    for i in range(n):
+        m = masks[i]
+        transposed = m.shape[1] > m.shape[0]
+        h, w = (m.shape[1], m.shape[0]) if transposed else m.shape
+        buckets.setdefault((_pow2_bucket(h), _pow2_bucket(w)), []).append((i, transposed))
+    with stage_timer("seg.score"):
+        for (ph, pw), items in buckets.items():
+            rows = []
+            for i, transposed in items:
+                if sources[i] is not None and dbatch is not None:
+                    rows.append(dbatch.crop(sources[i], transposed))
+                else:
+                    c, m = crops[i], masks[i]
+                    if transposed:
+                        c, m = np.transpose(c, (1, 0, 2)), m.T
+                    rows.append((np.ascontiguousarray(c), np.ascontiguousarray(m)))
+            rgb_b, mask_b = _bucket_rows(rows, ph, pw, device)
+            overall, color, texture, count = (
+                t.cpu().numpy() for t in _split_score_batch(rgb_b, mask_b)
+            )
+            for row, (i, _) in enumerate(items):
+                if count[row] < 100:
+                    out[i] = (0.0, 0.0, 0.0)
+                else:
+                    out[i] = (float(overall[row]), float(color[row]), float(texture[row]))
+    return out
+
+
+def optimal_segments_many(
+    crops: list, masks: list, device, sources: list | None = None,
+    dbatch: DeviceBatch | None = None,
+) -> list:
+    """Split score -> SLIC segment counts via the logistic window law."""
+    scores = split_scores_many(crops, masks, device, sources=sources, dbatch=dbatch)
+    return [
+        cfg.logistic_segments(scores[i][0], cfg.segment_window(crops[i].size))
+        for i in range(len(crops))
+    ]
+
+
+# ---------------------------------------------------------------------------
+# PIL's antialiased bilinear resample, in numpy (the card's machine has no
+# PIL).  Same fixed-point arithmetic as libImaging/Resample.c: double
+# coefficients normalised per output pixel, rounded to 22-bit integers,
+# horizontal pass first into uint8, then vertical.
+# ---------------------------------------------------------------------------
+
+_PRECISION_BITS = 32 - 8 - 2
+
+
+def _resample_coeffs(in_size: int, out_size: int):
+    """(bounds (out, 2) int64 [xmin, count], kk (out, ksize) int64)."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale  # bilinear filter support
+    ksize = int(math.ceil(support)) * 2 + 1
+    kk = np.zeros((out_size, ksize), np.float64)
+    bounds = np.zeros((out_size, 2), np.int64)
+    ss = 1.0 / filterscale
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        x = np.arange(xmax, dtype=np.float64)
+        wv = np.maximum(1.0 - np.abs((x + xmin - center + 0.5) * ss), 0.0)
+        ww = 0.0
+        for v in wv:  # sequential sum, as the C loop
+            ww += v
+        if ww != 0.0:
+            wv = wv / ww
+        kk[xx, :xmax] = wv
+        bounds[xx] = (xmin, xmax)
+    scaled = kk * (1 << _PRECISION_BITS)
+    kint = np.where(scaled < 0, np.trunc(scaled - 0.5), np.trunc(scaled + 0.5)).astype(np.int64)
+    return bounds, kint
+
+
+def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One 8-bit resample pass along `axis` of an (h, w, c) uint8 array."""
+    in_size = img.shape[axis]
+    bounds, kint = _resample_coeffs(in_size, out_size)
+    ksize = kint.shape[1]
+    idx = np.minimum(bounds[:, :1] + np.arange(ksize)[None, :], in_size - 1)
+    x = np.moveaxis(img, axis, 0).astype(np.int64)  # (in, other, c)
+    acc = np.full((out_size,) + x.shape[1:], 1 << (_PRECISION_BITS - 1), np.int64)
+    for t in range(ksize):
+        acc += x[idx[:, t]] * kint[:, t].reshape((-1,) + (1,) * (x.ndim - 1))
+    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def _resize_uint8(img: np.ndarray, shape: tuple) -> np.ndarray:
+    """Antialiased bilinear downscale, bit-identical to
+    PIL.Image.resize((w, h), Image.BILINEAR) on an RGB uint8 image."""
+    out = np.asarray(img, np.uint8)
+    if out.shape[1] != shape[1]:
+        out = _resample_axis(out, shape[1], 1)
+    if out.shape[0] != shape[0]:
+        out = _resample_axis(out, shape[0], 0)
+    return np.ascontiguousarray(out)
+
+
+def _resize_nearest(arr: np.ndarray, shape: tuple) -> np.ndarray:
+    """Nearest-neighbor resize via index maps (half-pixel centers)."""
+    h, w = arr.shape[:2]
+    nh, nw = shape
+    rows = np.minimum(((np.arange(nh) + 0.5) * h / nh).astype(np.int64), h - 1)
+    cols = np.minimum(((np.arange(nw) + 0.5) * w / nw).astype(np.int64), w - 1)
+    return arr[rows][:, cols]
+
+
+def region_segments_many(
+    crops: list,
+    masks: list,
+    n_segments: list,
+    device,
+    compactness: float = 10.0,
+    sigma: float = 1.0,
+    sources: list | None = None,
+    dbatch: DeviceBatch | None = None,
+) -> list:
+    """Batched SLIC at <= 500 px working resolution, labels upsampled back.
+
+    Returns a list of (bh_i, bw_i) int32 label maps, 0 outside mask.
+    """
+    n = len(crops)
+    if sources is None:
+        sources = [None] * n
+    work_imgs: list = [None] * n
+    work_masks: list = [None] * n
+    work_n: list = [0] * n
+    work_src: list = [None] * n
+    scaled = [False] * n
+    out: list = [None] * n
+    run_ids = []
+    for i in range(n):
+        h, w = masks[i].shape
+        scale = cfg.slic_scale_factor(max(crops[i].shape))
+        if scale < 1.0:
+            nh, nw = max(int(h * scale), 1), max(int(w * scale), 1)
+            small_mask = _resize_nearest(masks[i], (nh, nw))
+            if not small_mask.any():
+                out[i] = np.zeros((h, w), np.int32)
+                continue
+            work_imgs[i] = _resize_uint8(crops[i], (nh, nw))
+            work_masks[i] = small_mask
+            work_n[i] = max(1, math.ceil(n_segments[i] * scale * scale))
+            scaled[i] = True
+        else:
+            # Unscaled rows slice their crop from the device batch; resized
+            # rows exist only on the host.
+            work_imgs[i] = crops[i]
+            work_masks[i] = masks[i]
+            work_n[i] = n_segments[i]
+            work_src[i] = sources[i]
+        run_ids.append(i)
+
+    with stage_timer("seg.slic"):
+        labels_small = SLIC.slic_many(
+            [work_imgs[i] for i in run_ids],
+            [work_masks[i] for i in run_ids],
+            [work_n[i] for i in run_ids],
+            device,
+            compactness=compactness,
+            sigma=sigma,
+            sources=[work_src[i] for i in run_ids],
+            dbatch=dbatch,
+        )
+    for pos, i in enumerate(run_ids):
+        lab = labels_small[pos]
+        if scaled[i]:
+            lab = _resize_nearest(lab, masks[i].shape).astype(np.int32)
+            # Upsampled labels can leak outside the full-res mask; clamp.
+            lab[~masks[i]] = 0
+        out[i] = lab
+    return out

@@ -1,0 +1,190 @@
+"""Palette clustering: eps-connectivity components and k-means, batched rows.
+
+DBSCAN(min_samples=1) over palette colours is exactly the set of connected
+components of the eps-threshold graph; `eps_components` is the plain driver
+over the plain sweep (the CUDA path runs the same driver over the kernel,
+ops/cuda/epscc.py).  k-means reproduces the JAX package's `ops/cluster.kmeans`:
+k-means++ (or seeded random) initial centres drawn with JAX's threefry bits
+(ops/prng.py), the expanded |a|^2 + |b|^2 - 2ab distance with XLA's fused
+multiply-adds, first-index argmin and early-exit Lloyd.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from roibasedimagecompression_torch.ops import prng
+from roibasedimagecompression_torch.ops.colors import fma32
+from roibasedimagecompression_torch.ops.cuda import epscc as EPS
+
+_BIG = 3.4e38
+
+
+def eps_components(points, eps, valid, groups=None) -> torch.Tensor:
+    """Plain eps-graph components of one (n, 3) row: (n,) int32 labels, each
+    component labelled by its minimum point index, invalid points n."""
+    points = torch.as_tensor(points, dtype=torch.float32)
+    valid = torch.as_tensor(valid, dtype=torch.bool, device=points.device)
+    n = points.shape[0]
+    g = (
+        torch.zeros(n, dtype=torch.int32, device=points.device)
+        if groups is None
+        else torch.as_tensor(groups, dtype=torch.int32, device=points.device)
+    )
+    eps2 = torch.tensor([np.float32(eps) ** 2], dtype=torch.float32, device=points.device)
+    labels, _ = EPS.eps_components_rows(
+        points[None].contiguous(), valid[None], g[None].contiguous(), eps2,
+        sweep=EPS.eps_sweep_ref,
+    )
+    return labels[0]
+
+
+@functools.lru_cache(maxsize=8)
+def _gumbel_table(seed: int, m: int, n_draws: int) -> np.ndarray:
+    """(n_draws, m) float32 Gumbel noise of the k-means++ draws: row 0 is the
+    first centre's draw, row i the i-th step's (key, sub = split(key) each)."""
+    key = prng.prng_key(seed)
+    out = np.empty((n_draws, m), np.float32)
+    for i in range(n_draws):
+        key, sub = prng.split(key)
+        out[i] = prng.gumbel(sub, (m,))
+    out.setflags(write=False)
+    return out
+
+
+def _sq_dists(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """(B, m, 3) x (B, k, 3) -> (B, m, k) squared distances, with the
+    arithmetic of XLA's CPU lowering of ops/cluster._sq_dists: fused
+    multiply-add chains for |c|^2 and a.c, then (|a|^2 + |c|^2) - 2 a.c."""
+    a2 = fma32(a[..., 2], a[..., 2], fma32(a[..., 1], a[..., 1], a[..., 0] * a[..., 0]))
+    c2 = fma32(c[..., 2], c[..., 2], fma32(c[..., 1], c[..., 1], c[..., 0] * c[..., 0]))
+    a_ = a[:, :, None, :]
+    c_ = c[:, None, :, :]
+    ab = fma32(a_[..., 2], c_[..., 2], fma32(a_[..., 1], c_[..., 1], a_[..., 0] * c_[..., 0]))
+    return torch.clamp((a2[:, :, None] + c2[:, None, :]) - 2.0 * ab, min=0.0)
+
+
+def kmeans_rows(
+    points: torch.Tensor,
+    valid: torch.Tensor,
+    k,
+    *,
+    k_max: int,
+    iters: int = 25,
+    seed: int = 42,
+    plusplus: bool = True,
+) -> torch.Tensor:
+    """Lloyd k-means on each row of a padded batch; (B, m) int32 labels.
+
+    points (B, m, 3) float32 integer colours; valid (B, m) bool; k (B,) the
+    per-row cluster count (<= k_max).  Every row draws from the same key
+    sequence (the JAX kernel is vmapped with a static seed), so one noise
+    vector per k-means++ step serves the whole batch.
+    """
+    b, m, _ = points.shape
+    dev = points.device
+    k = torch.as_tensor(np.asarray(k, np.int64), device=dev)
+    kvec = k.cpu().numpy()
+    center_valid = torch.arange(k_max, device=dev)[None, :] < k[:, None]
+    rows = torch.arange(b, device=dev)
+    key = prng.prng_key(seed)
+    neg_inf = torch.tensor(float("-inf"), device=dev)
+
+    if plusplus:
+        n_draws = max(int(kvec.max()), 1)
+        noise = torch.tensor(_gumbel_table(int(seed), m, n_draws), device=dev)
+        first_logits = torch.where(valid, torch.zeros((), device=dev), neg_inf)
+        first = torch.argmax(noise[0][None, :] + first_logits, dim=1)
+        centers = torch.zeros((b, k_max, 3), dtype=torch.float32, device=dev)
+        centers[:, 0] = points[rows, first]
+        min_d2 = ((points - points[rows, first][:, None, :]) ** 2).sum(dim=2)
+        min_d2 = torch.where(valid, min_d2, torch.zeros((), device=dev))
+        for i in range(1, n_draws):
+            g = noise[i]
+            logits = torch.where(valid & (min_d2 > 0), torch.log(min_d2 + 1e-20), neg_inf)
+            has = torch.isfinite(logits).any(dim=1, keepdim=True)
+            logits = torch.where(
+                has, logits, torch.where(valid, torch.zeros((), device=dev), neg_inf)
+            )
+            idx = torch.argmax(g[None, :] + logits, dim=1)
+            new_center = points[rows, idx]
+            active = (i < k)[:, None]
+            centers[:, i] = torch.where(active, new_center, centers[:, i])
+            d2_new = ((points - new_center[:, None, :]) ** 2).sum(dim=2)
+            min_d2 = torch.where(active, torch.minimum(min_d2, d2_new), min_d2)
+    else:
+        u = torch.from_numpy(prng.uniform(key, (m,))).to(dev)
+        scores = u[None, :] + torch.where(
+            valid, torch.zeros((), device=dev), torch.full((), 2.0, device=dev)
+        )
+        order = torch.sort(scores, dim=1, stable=True).indices
+        take = order[:, torch.arange(k_max, device=dev) % m]
+        centers = points[rows[:, None], take]
+
+    chunk = max(1, (1 << 23) // max(1, b * k_max))
+
+    def assign(c):
+        out = torch.empty((b, m), dtype=torch.int64, device=dev)
+        for s in range(0, m, chunk):
+            d2 = _sq_dists(points[:, s : s + chunk], c)
+            d2 = torch.where(center_valid[:, None, :], d2, torch.full((), _BIG, device=dev))
+            out[:, s : s + chunk] = torch.argmin(d2, dim=2)
+        return out
+
+    validf = valid.float()
+    pts_v = points * validf[..., None]
+
+    def update(labels, c):
+        # Integer colours, unweighted: the sums are exact in float32
+        # (<= 255 * 65536 < 2^24), so their order is irrelevant.
+        sums = torch.zeros((b, k_max, 3), dtype=torch.float32, device=dev)
+        sums.scatter_add_(1, labels[..., None].expand(b, m, 3), pts_v)
+        counts = torch.zeros((b, k_max), dtype=torch.float32, device=dev)
+        counts.scatter_add_(1, labels, validf)
+        new = sums / torch.clamp(counts, min=1.0)[..., None]
+        return torch.where(counts[..., None] > 0, new, c)
+
+    prev = torch.full((b, m), -1, dtype=torch.int64, device=dev)
+    for _ in range(iters):
+        labels = assign(centers)
+        centers = update(labels, centers)
+        changed = bool((labels != prev).any())
+        prev = labels
+        if not changed:
+            break
+    return assign(centers).int()
+
+
+def _bucket(n: int, minimum: int = 8) -> int:
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+def kmeans_host_many(problems: list, device, *, seed: int = 42, iters: int = 25) -> list:
+    """k-means labels (numpy int32) for many (points (n, 3), k) problems,
+    each padded to a power-of-two row as the JAX package pads it."""
+    out = []
+    for points, k in problems:
+        points = np.asarray(points, dtype=np.float32)
+        n = points.shape[0]
+        if k <= 1 or n <= 1:
+            out.append(np.zeros(n, dtype=np.int32))
+            continue
+        k = min(k, n)
+        n_pad = _bucket(n)
+        k_max = _bucket(k, minimum=2)
+        pts = np.zeros((1, n_pad, 3), np.float32)
+        pts[0, :n] = points
+        valid = np.zeros((1, n_pad), bool)
+        valid[0, :n] = True
+        labels = kmeans_rows(
+            torch.from_numpy(pts).to(device), torch.from_numpy(valid).to(device),
+            [k], k_max=k_max, iters=iters, seed=seed, plusplus=k_max <= 256,
+        )
+        out.append(labels[0, :n].cpu().numpy())
+    return out

@@ -1,0 +1,79 @@
+"""Color space conversions as torch ops on (..., 3) uint8 tensors.
+
+rgb_to_lab reproduces skimage.color.rgb2lab (sRGB -> linear -> XYZ D65 ->
+CIELAB); rgb_to_gray_skimage is skimage's rgb2gray.
+
+The JAX package runs these through XLA on the CPU, which rewrites a division
+by a constant into a multiplication by its float32 reciprocal and contracts
+`a*b + c` into a fused multiply-add.  Where a later step compares values
+exactly (the LBP codes and the intensity histogram of the split score read the
+gray image), this module reproduces that arithmetic with `fma32`, so the bits
+match; elsewhere plain float32 is within a few ulps.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def fma32(a, b, c) -> torch.Tensor:
+    """float32 a*b + c with one rounding (XLA's contracted multiply-add).
+
+    The product of two float32 values is exact in float64, so the float64
+    sum rounded to float32 is the fused result (up to a double rounding that
+    is vanishingly rare for these magnitudes).
+    """
+    a64 = a.double() if torch.is_tensor(a) else float(a)
+    b64 = b.double() if torch.is_tensor(b) else float(b)
+    c64 = c.double() if torch.is_tensor(c) else float(c)
+    return (a64 * b64 + c64).float()
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+_INV255 = _f32(1.0 / 255.0)
+
+
+def rgb_to_gray_skimage(rgb: torch.Tensor) -> torch.Tensor:
+    """skimage.color.rgb2gray on uint8: float32 in [0, 1],
+    weights 0.2125 / 0.7154 / 0.0721."""
+    x = rgb.float() * _INV255
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    return fma32(_f32(0.0721), b, fma32(_f32(0.2125), r, _f32(0.7154) * g))
+
+
+_RGB2XYZ = (
+    (0.412453, 0.357580, 0.180423),
+    (0.212671, 0.715160, 0.072169),
+    (0.019334, 0.119193, 0.950227),
+)
+_XYZ_REF = (0.95047, 1.0, 1.08883)
+
+
+def rgb_to_lab(rgb: torch.Tensor) -> torch.Tensor:
+    """skimage.color.rgb2lab for uint8 RGB -> float32 (..., 3) Lab."""
+    s = rgb.float() * _INV255
+    linear = torch.where(
+        s > 0.04045,
+        torch.pow((s + 0.055) * _f32(1.0 / 1.055), 2.4),
+        s * _f32(1.0 / 12.92),
+    )
+    l0, l1, l2 = linear[..., 0], linear[..., 1], linear[..., 2]
+    out = []
+    for row, ref in zip(_RGB2XYZ, _XYZ_REF):
+        xyz = l0 * _f32(row[0]) + l1 * _f32(row[1]) + l2 * _f32(row[2])
+        t = xyz * _f32(1.0 / ref) if ref != 1.0 else xyz
+        f = torch.where(
+            t > 0.008856,
+            torch.pow(t.clamp_min(0.0), 1.0 / 3.0),
+            t * 7.787 + _f32(16.0 / 116.0),
+        )
+        out.append(f)
+    fx, fy, fz = out
+    L = fy * 116.0 - 16.0
+    a = (fx - fy) * 500.0
+    b = (fy - fz) * 200.0
+    return torch.stack([L, a, b], dim=-1)

@@ -1,0 +1,119 @@
+"""Build and load the hand-written CUDA kernels under `csrc/`.
+
+Each `csrc/<name>.cu` has a plain C interface and is compiled by nvcc for
+`sm_90a` into a shared library in the package's `_build/` directory, named
+after the source's hash, then loaded with ctypes.  Nothing is built when a
+module is imported: the first launch builds, or `build_all()` builds every
+kernel at once with one nvcc process per source, started together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+KERNELS = ("slic_assign", "epscc")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# kernel source -> (launch function, its argument types); every launch
+# function returns cudaGetLastError() as an int.
+_LAUNCHERS = {
+    "slic_assign": ("slic_assign_launch", [_P, _P, _P, _I, _I, _I, _P]),
+    "epscc": ("eps_sweep_launch", [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
+}
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_libs: dict = {}
+build_log: dict = {}
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def lib_path(name: str) -> str:
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return os.path.join(BUILD_DIR, f"lib{name}-{h}.so")
+
+
+def build_all(names=KERNELS) -> dict:
+    """Compile every missing kernel library in parallel; {name: seconds}.
+
+    Raises RuntimeError with the compiler's output if any build fails.
+    """
+    import time
+
+    todo = [n for n in names if not os.path.exists(lib_path(n))]
+    if not todo:
+        return {n: 0.0 for n in names}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    t0 = time.perf_counter()
+    for name in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, os.path.join(CSRC, f"{name}.cu"), "-o", tmp]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT
+        ))
+    seconds, failed = {}, []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate(timeout=900)
+        seconds[name] = time.perf_counter() - t0
+        build_log[name] = out.decode(errors="replace")
+        if proc.returncode == 0:
+            os.replace(tmp, lib_path(name))
+        else:
+            failed.append(name)
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    if failed:
+        raise RuntimeError(
+            "nvcc failed for " + ", ".join(failed) + ":\n"
+            + "\n".join(build_log[n][-3000:] for n in failed)
+        )
+    return {n: seconds.get(n, 0.0) for n in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library `name`, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build_all((name,))
+            lib = ctypes.CDLL(lib_path(name))
+            lib.kernel_error_string.restype = ctypes.c_char_p
+            lib.kernel_error_string.argtypes = [_I]
+            fn_name, argtypes = _LAUNCHERS[name]
+            fn = getattr(lib, fn_name)
+            fn.restype = _I
+            fn.argtypes = argtypes
+            _libs[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: {lib.kernel_error_string(rc).decode()}")

@@ -1,0 +1,66 @@
+"""SLIC assign: nearest 5-D centre per pixel (kernel `csrc/slic_assign.cu`).
+
+The counterpart of the JAX package's Pallas `slic_assign_pallas`.  On a CUDA
+tensor `slic_assign` launches the kernel (or raises); on a CPU tensor it runs
+the plain PyTorch version `slic_assign_ref`, which accumulates the distance
+dimension by dimension and takes the first-index argmin, exactly as the
+kernel does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from roibasedimagecompression_torch.ops.cuda import _build
+
+launches = 0  # kernel launches since the last reset (chip_smoke reads it)
+
+
+def slic_assign_ref(feats: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """Plain version: (B, MP, 5) f32 x (B, K, 5) f32 -> (B, MP) int32."""
+    out = torch.empty(feats.shape[:2], dtype=torch.int32, device=feats.device)
+    # Pixel chunks bound the (B, chunk, K) distance block; each pixel's id
+    # depends on its own row only, so chunking does not change the result.
+    chunk = max(1, (1 << 24) // max(1, feats.shape[0] * centers.shape[1]))
+    for s in range(0, feats.shape[1], chunk):
+        f = feats[:, s : s + chunk]
+        d2 = torch.zeros(
+            (f.shape[0], f.shape[1], centers.shape[1]), dtype=torch.float32, device=f.device
+        )
+        for d in range(feats.shape[2]):
+            diff = f[..., d, None] - centers[:, None, :, d]
+            d2 = d2 + diff * diff
+        out[:, s : s + chunk] = torch.argmin(d2, dim=2).int()
+    return out
+
+
+def slic_assign(feats: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """Nearest-centre ids (B, MP) int32 for feats (B, MP, 5) and centres
+    (B, K, 5), K <= 256, both float32."""
+    global launches
+    if feats.dim() != 3 or centers.dim() != 3 or feats.shape[2] != 5 or centers.shape[2] != 5:
+        raise ValueError(f"expected (B, MP, 5) and (B, K, 5), got {tuple(feats.shape)}, {tuple(centers.shape)}")
+    if feats.shape[0] != centers.shape[0]:
+        raise ValueError("feats and centers disagree on the batch size")
+    if feats.dtype != torch.float32 or centers.dtype != torch.float32:
+        raise ValueError("slic_assign takes float32 tensors")
+    if centers.shape[1] > 256 or centers.shape[1] < 1:
+        raise ValueError(f"K must be in [1, 256], got {centers.shape[1]}")
+    if feats.device != centers.device:
+        raise ValueError("feats and centers are on different devices")
+    if feats.device.type == "cpu":
+        return slic_assign_ref(feats, centers)
+    if feats.device.type != "cuda":
+        raise ValueError(f"unsupported device {feats.device}")
+    if not (feats.is_contiguous() and centers.is_contiguous()):
+        raise ValueError("slic_assign takes contiguous tensors")
+    lib = _build.load("slic_assign")
+    b, mp, _ = feats.shape
+    out = torch.empty((b, mp), dtype=torch.int32, device=feats.device)
+    with torch.cuda.device(feats.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.slic_assign_launch(feats.data_ptr(), centers.data_ptr(), out.data_ptr(),
+                b, mp, centers.shape[1], stream)
+    _build.check(lib, rc, "slic_assign")
+    launches += 1
+    return out

@@ -1,0 +1,268 @@
+"""Masked SLIC superpixels as 5-D k-means on the device.
+
+CIELAB color (blurred) plus compactness-scaled coordinates, Lloyd iterations
+with early exit, then connectivity enforcement on the host runtime.  Regions
+are grouped by padded shape; each bucket runs one batched core call.  The
+assign step is the hand-written kernel `ops/cuda/slic_assign.py` (its plain
+version on the CPU), with the JAX package's Pallas-mode semantics: direct
+differences, a 2048-pixel padding grid and the 1e6 invalid-centre sentinel.
+
+Output convention matches masked skimage slic: labels 1..n inside the mask,
+0 outside.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+
+import numpy as np
+import torch
+
+from roibasedimagecompression_torch import native
+from roibasedimagecompression_torch.ops import colors as COL
+from roibasedimagecompression_torch.ops import conv as CONV
+from roibasedimagecompression_torch.ops.cuda import slic_assign as SA
+from roibasedimagecompression_torch.utils.timing import stage_timer
+
+_TILE = 2048  # pixel padding grid of the JAX Pallas mode
+_SENTINEL = 1e6
+
+
+def _slic_core_batch(
+    rgb: torch.Tensor,
+    mask: torch.Tensor,
+    centers_yx: torch.Tensor,
+    center_valid: torch.Tensor,
+    step: torch.Tensor,
+    *,
+    iters: int = 10,
+    compactness: float = 10.0,
+    sigma: float = 1.0,
+) -> torch.Tensor:
+    """Batched SLIC core: uint8 RGB in, uint8 centre ids out.
+
+    Args:
+      rgb: (B, H, W, 3) uint8 region crops (zeros beyond each bbox).
+      mask: (B, H, W) bool.
+      centers_yx: (B, K, 2) int64 grid-initialized coordinates, K <= 256.
+      center_valid: (B, K) bool; padding rows False.
+      step: (B,) float32 SLIC grid spacing S.
+    Returns:
+      (B, H, W) uint8 centre ids inside the mask, 255 outside.
+    """
+    b, h, w, _ = rgb.shape
+    k = centers_yx.shape[1]
+    dev = rgb.device
+    lab = CONV.gaussian_blur(COL.rgb_to_lab(rgb), sigma)
+
+    ratio = (compactness / step).float()  # (B,)
+    yy = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None].expand(b, h, w)
+    xx = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :].expand(b, h, w)
+    feats = torch.cat(
+        [lab, (yy * ratio[:, None, None])[..., None], (xx * ratio[:, None, None])[..., None]],
+        dim=-1,
+    ).reshape(b, h * w, 5)
+    valid = mask.reshape(b, h * w)
+
+    bi = torch.arange(b, device=dev)[:, None]
+    c_lab = lab[bi, centers_yx[..., 0], centers_yx[..., 1]]  # (B, K, 3)
+    init = torch.cat([c_lab, centers_yx.float() * ratio[:, None, None]], dim=-1)
+    cv = center_valid[..., None]
+    centers = torch.where(cv, init, torch.full_like(init, _SENTINEL))
+
+    m = h * w
+    pad = (-m) % _TILE
+    if pad:
+        feats = torch.cat([feats, feats.new_zeros((b, pad, 5))], dim=1)
+        valid = torch.cat([valid, valid.new_zeros((b, pad))], dim=1)
+    feats = feats.contiguous()
+    valid_f64 = valid.double()
+    feats64 = feats.double() * valid_f64[..., None]
+
+    def assign(c):
+        return SA.slic_assign(feats, torch.where(cv, c, torch.full_like(c, _SENTINEL)).contiguous())
+
+    def update(ids, c):
+        # Exact-as-possible centre sums: float64 accumulation rounded once to
+        # float32, so the order of the sum (CPU loop, CUDA atomics) does not
+        # show in the centres.
+        idx = ids.long()
+        sums = torch.zeros((b, k, 5), dtype=torch.float64, device=dev)
+        sums.scatter_add_(1, idx[..., None].expand(b, idx.shape[1], 5), feats64)
+        counts = torch.zeros((b, k), dtype=torch.float64, device=dev)
+        counts.scatter_add_(1, idx, valid_f64)
+        counts = counts.float()
+        new = sums.float() / torch.clamp(counts, min=1.0)[..., None]
+        return torch.where(counts[..., None] > 0, new, c)
+
+    # Early-exit Lloyd: once no id changes the update is a fixed point, so
+    # stopping is identical to running all iterations (rows that converge
+    # first stay fixed while the others finish).
+    prev = torch.full((b, feats.shape[1]), -1, dtype=torch.int32, device=dev)
+    for _ in range(iters):
+        ids = assign(centers)
+        centers = update(ids, centers)
+        changed = bool((ids != prev).any())
+        prev = ids
+        if not changed:
+            break
+    out = assign(centers)[:, :m]
+    out = torch.where(mask.reshape(b, m), out, torch.full_like(out, 255))
+    return out.reshape(b, h, w).to(torch.uint8)
+
+
+def _pad_dim(n: int) -> int:
+    """SLIC bucket dim: tiers {64, 128, 256} up to 256, then multiples of 64."""
+    if n <= 64:
+        return 64
+    if n <= 128:
+        return 128
+    if n <= 256:
+        return 256
+    return -(-n // 64) * 64
+
+
+def _prepare_centers(mask: np.ndarray, n_segments: int):
+    """Grid centres at spacing S = sqrt(area/n), snapped into the mask."""
+    h, w = mask.shape
+    area = int(mask.sum())
+    n_segments = max(1, int(n_segments))
+    step = float(np.sqrt(area / n_segments))
+    ys = np.arange(step / 2, h, step)
+    xs = np.arange(step / 2, w, step)
+    grid = np.stack(np.meshgrid(ys, xs, indexing="ij"), axis=-1).reshape(-1, 2)
+    grid_int = np.clip(np.round(grid).astype(np.int64), 0, [h - 1, w - 1])
+    inside = mask[grid_int[:, 0], grid_int[:, 1]]
+    if inside.any():
+        centers_yx = grid_int[inside]
+    else:
+        # Snap every grid point to its nearest mask pixel.
+        mask_yx = np.argwhere(mask)
+        d = np.abs(mask_yx[None, :, 0] - grid_int[:, :1]).astype(np.float64) ** 2 + (
+            np.abs(mask_yx[None, :, 1] - grid_int[:, 1:2]) ** 2
+        )
+        centers_yx = np.unique(mask_yx[np.argmin(d, axis=1)], axis=0)
+    if len(centers_yx) > n_segments:
+        take = np.linspace(0, len(centers_yx) - 1, n_segments).astype(np.int64)
+        centers_yx = centers_yx[np.unique(take)]
+    if len(centers_yx) > 255:
+        # uint8 ids keep 255 as the outside-mask sentinel.
+        take = np.linspace(0, len(centers_yx) - 1, 255).astype(np.int64)
+        centers_yx = centers_yx[np.unique(take)]
+    return centers_yx.astype(np.int32), step
+
+
+def _compact_labels(labels: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """Relabel to 1..n inside the mask, 0 outside."""
+    out = np.zeros(labels.shape, np.int32)
+    vals = labels[mask]
+    if vals.size == 0:
+        return out
+    _, inv = np.unique(vals, return_inverse=True)
+    out[mask] = inv.astype(np.int32) + 1
+    return out
+
+
+def slic_many(
+    images: list,
+    masks: list,
+    n_segments: list,
+    device,
+    compactness: float = 10.0,
+    sigma: float = 1.0,
+    iters: int = 10,
+    min_size_factor: float = 0.5,
+    sources: list | None = None,
+    dbatch=None,
+) -> list:
+    """Batched masked SLIC over many regions.
+
+    Landscape regions are transposed to portrait (exact: distances, updates
+    and connectivity are coordinate-order invariant) and grouped by padded
+    shape and centre cap (64 or 256).  Rows with a `sources` entry slice their
+    crop from the device batch `dbatch`.  Returns (h_i, w_i) int32 label maps
+    (0 outside mask, 1..n inside).
+    """
+    n = len(images)
+    out: list = [None] * n
+    if sources is None:
+        sources = [None] * n
+    k_max = 256
+    buckets: dict = {}
+    metas: dict = {}
+    for i in range(n):
+        mask = np.asarray(masks[i], bool)
+        transposed = mask.shape[1] > mask.shape[0]
+        if transposed:
+            mask = mask.T
+        h0, w0 = mask.shape
+        area = int(mask.sum())
+        if area == 0:
+            out[i] = np.zeros(np.asarray(masks[i], bool).shape, np.int32)
+            continue
+        centers_yx, step = _prepare_centers(mask, n_segments[i])
+        if len(centers_yx) > k_max:
+            raise ValueError(f"SLIC center count {len(centers_yx)} exceeds {k_max}")
+        metas[i] = (mask, centers_yx, step, area, transposed)
+        k_cap = 64 if len(centers_yx) <= 64 else k_max
+        buckets.setdefault((_pad_dim(h0), _pad_dim(w0), k_cap), []).append(i)
+
+    for (ph, pw, k_cap), ids in buckets.items():
+        with stage_timer("slic.core"):
+            bsz = len(ids)
+            rgb_b = torch.zeros((bsz, ph, pw, 3), dtype=torch.uint8, device=device)
+            masks_b = np.zeros((bsz, ph, pw), bool)
+            cyx = np.zeros((bsz, k_cap, 2), np.int64)
+            cval = np.zeros((bsz, k_cap), bool)
+            steps = np.ones(bsz, np.float32)
+            for row, i in enumerate(ids):
+                mask, centers_yx, step, _, transposed = metas[i]
+                h0, w0 = mask.shape
+                masks_b[row, :h0, :w0] = mask
+                if sources[i] is not None and dbatch is not None:
+                    rgb_b[row, :h0, :w0] = dbatch.crop(sources[i], transposed)[0]
+                else:
+                    img = np.asarray(images[i], np.uint8)
+                    if transposed:
+                        img = np.transpose(img, (1, 0, 2))
+                    rgb_b[row, :h0, :w0] = torch.from_numpy(np.ascontiguousarray(img)).to(device)
+                kc = len(centers_yx)
+                cyx[row, :kc] = centers_yx
+                cval[row, :kc] = True
+                steps[row] = step
+            assign_b = _slic_core_batch(
+                rgb_b,
+                torch.from_numpy(masks_b).to(device),
+                torch.from_numpy(cyx).to(device),
+                torch.from_numpy(cval).to(device),
+                torch.from_numpy(steps).to(device),
+                iters=iters, compactness=float(compactness), sigma=float(sigma),
+            ).cpu().numpy()
+        with stage_timer("slic.conn"):
+            labels_rows = _enforce_connectivity_bucket(
+                assign_b, masks_b, ids, metas, min_size_factor
+            )
+        for row, i in enumerate(ids):
+            mask, centers_yx, _, _, transposed = metas[i]
+            h0, w0 = mask.shape
+            if len(centers_yx) > 1:
+                lab = labels_rows[row][:h0, :w0]
+            else:
+                lab = assign_b[row, :h0, :w0]
+            compacted = _compact_labels(lab, mask)
+            out[i] = compacted.T.copy() if transposed else compacted
+    return out
+
+
+def _enforce_connectivity_bucket(assign_b, masks_b, ids, metas, min_size_factor):
+    """Split segments into connected fragments and absorb small ones into
+    neighbors (skimage _enforce_label_connectivity_cython behavior), on the
+    host runtime, threaded across the bucket rows."""
+
+    def one(row):
+        _, centers_yx, _, area, _ = metas[ids[row]]
+        min_size = max(1, int(min_size_factor * area / len(centers_yx)))
+        return native.slic_enforce(assign_b[row], masks_b[row], min_size)
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
+        return list(pool.map(one, range(len(ids))))

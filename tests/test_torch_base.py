@@ -1,0 +1,170 @@
+"""PyTorch port, base layer: package hygiene, the vendored runtime, config,
+container, PIL-free resize and the threefry PRNG, each held against the JAX
+package on the same inputs."""
+
+import dataclasses
+import hashlib
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+
+from roibasedimagecompression_tpu import config as jcfg
+from roibasedimagecompression_tpu.io import container as jcontainer
+from roibasedimagecompression_torch import config as tcfg
+from roibasedimagecompression_torch.io import container as tcontainer
+from roibasedimagecompression_torch.ops import prng
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "roibasedimagecompression_torch"
+
+
+def test_port_imports_no_jax():
+    """The port runs its public functions without importing jax or the JAX
+    package (fresh interpreter)."""
+    code = (
+        "import sys\n"
+        "import roibasedimagecompression_torch as rtt\n"
+        "from roibasedimagecompression_torch.utils.synthetic import synthetic_image\n"
+        "img = synthetic_image(5, 96, 128)\n"
+        "data = rtt.encode(img, device='cpu')\n"
+        "out = rtt.decode(data)\n"
+        "assert out.shape == img.shape\n"
+        "assert rtt.unpack(data).shape == (96, 128)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m.startswith('roibasedimagecompression_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env,
+        timeout=300, cwd=str(ROOT),
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_port_sources_never_name_the_jax_package():
+    hits = [
+        str(p.relative_to(ROOT))
+        for p in PORT.rglob("*")
+        if p.is_file() and p.suffix in (".py", ".cu", ".cpp", ".cuh", ".h")
+        and "roibasedimagecompression_tpu" in p.read_text(errors="replace")
+    ]
+    assert hits == []
+
+
+def test_cuda_entry_point_raises_without_a_card():
+    import torch
+
+    import roibasedimagecompression_torch as rtt
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rtt.encode(np.zeros((64, 64, 3), np.uint8))
+
+
+def test_native_source_is_byte_identical():
+    a = (ROOT / "roibasedimagecompression_tpu/native/rhccq_native.cpp").read_bytes()
+    b = (PORT / "native/rhccq_native.cpp").read_bytes()
+    assert hashlib.sha256(a).hexdigest() == hashlib.sha256(b).hexdigest()
+
+
+@pytest.mark.parametrize(
+    "overrides",
+    [{}, {"roi_quality": 35.0, "nonroi_quality": 15.0, "split_margin": 2.0},
+     {"roi": jcfg.RoiConfig(buffer_size=5), "container_level": 7}],
+)
+def test_config_from_dict_carries_the_laws(overrides):
+    jc = jcfg.CodecConfig(**overrides)
+    tc = tcfg.from_dict(dataclasses.asdict(jc))
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    assert (tc.roi_tier2_quality, tc.nonroi_tier2_quality, tc.image_quality) == (
+        jc.roi_tier2_quality, jc.nonroi_tier2_quality, jc.image_quality
+    )
+    for size in (3 * 96 * 128, 3 * 512 * 768, 3 * 4000 * 6000, 1234):
+        assert tcfg.min_region_size(size) == jcfg.min_region_size(size)
+        assert tcfg.segment_window(size) == jcfg.segment_window(size)
+    for q in (1.0, 10.0, 20.0, 40.0, 99.0, 100.0):
+        for n in (1, 7, 64, 9999, 20000):
+            assert dataclasses.asdict(tcfg.clustering_params(n, q)) == dataclasses.asdict(
+                jcfg.clustering_params(n, q)
+            )
+            assert tcfg.kmeans_n_clusters(n, q) == jcfg.kmeans_n_clusters(n, q)
+        for s in np.linspace(0, 1, 41):
+            assert tcfg.logistic_segments(s, 57) == jcfg.logistic_segments(s, 57)
+    for d in (64, 499, 500, 501, 768, 3000):
+        assert tcfg.slic_scale_factor(d) == jcfg.slic_scale_factor(d)
+    assert tcfg.KMEANS_SWITCH_COLORS == jcfg.KMEANS_SWITCH_COLORS
+
+
+@pytest.mark.parametrize("level,use_rle", [(0, False), (7, False), (10, False), (0, True), (10, True)])
+def test_container_pack_bytes_equal(rng, level, use_rle):
+    for n_colors in (5, 300):
+        palette = rng.integers(0, 256, (n_colors, 3), dtype=np.uint8)
+        idx = np.repeat(rng.integers(0, n_colors, (40, 7)), 9, axis=1).astype(np.int64)
+        a = tcontainer.pack(palette, idx, level=level, use_rle=use_rle)
+        b = jcontainer.pack(palette, idx, level=level, use_rle=use_rle)
+        assert a == b
+        dec = tcontainer.unpack(a)
+        np.testing.assert_array_equal(dec.palette, palette)
+        np.testing.assert_array_equal(dec.indices, idx)
+        np.testing.assert_array_equal(dec.to_rgb(), palette[idx])
+        np.testing.assert_array_equal(dec.to_rgb(), jcontainer.unpack(a).to_rgb())
+
+
+def test_container_refuses_globals():
+    import pickle
+    import struct
+    import zlib
+
+    blob = zlib.compress(pickle.dumps({"s": (1, 1), "l": os.getpid}))
+    with pytest.raises(pickle.UnpicklingError):
+        tcontainer.unpack(b"RHCCQ" + struct.pack("<I", len(blob)) + blob)
+
+
+def test_resize_matches_pil(rng):
+    from PIL import Image
+
+    from roibasedimagecompression_torch.models import segment as SEG
+
+    for _ in range(12):
+        h, w = int(rng.integers(20, 700)), int(rng.integers(20, 700))
+        nh, nw = max(1, int(h * rng.uniform(0.2, 1.0))), max(1, int(w * rng.uniform(0.2, 1.0)))
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        img[: h // 2] = (img[: h // 2] // 32) * 32  # flat-ish half
+        want = np.asarray(Image.fromarray(img).resize((nw, nh), Image.BILINEAR))
+        np.testing.assert_array_equal(SEG._resize_uint8(img, (nh, nw)), want)
+
+
+@pytest.mark.parametrize("seed", [0, 42, 2**31 - 1])
+def test_prng_bit_exact(seed):
+    key = jax.random.PRNGKey(seed)
+    k = prng.prng_key(seed)
+    np.testing.assert_array_equal(np.asarray(key), k)
+    np.testing.assert_array_equal(np.asarray(jax.random.split(key)), prng.split(k))
+    np.testing.assert_array_equal(np.asarray(jax.random.split(key, 5)), prng.split(k, 5))
+    sub = jax.random.split(key)[1]
+    s = prng.split(k)[1]
+    for shape in ((1,), (1000,), (7, 9)):
+        np.testing.assert_array_equal(
+            np.asarray(jax.random.uniform(sub, shape)), prng.uniform(s, shape)
+        )
+    # The Gumbel tail is float32 log: numpy's may differ from XLA's by an ulp.
+    g_j = np.asarray(jax.random.gumbel(sub, (4096,)))
+    g_t = prng.gumbel(s, (4096,))
+    np.testing.assert_allclose(g_t, g_j, rtol=0, atol=4e-6)
+
+
+def test_prng_categorical_matches_jax(rng):
+    for t in range(60):
+        logits = np.log(rng.random(2048).astype(np.float32) * 1000.0 + 1e-20).astype(np.float32)
+        logits[rng.random(2048) < 0.3] = -np.inf
+        key = jax.random.PRNGKey(t)
+        assert int(jax.random.categorical(key, logits)) == prng.categorical(prng.prng_key(t), logits)

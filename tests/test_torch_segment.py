@@ -1,0 +1,114 @@
+"""PyTorch port, frontend and segmentation: thresholds, ROI masks and region
+lists, split scores and segment counts, and SLIC labels, each against the
+JAX package on the same synthetic images."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from roibasedimagecompression_tpu import config as jcfg
+from roibasedimagecompression_tpu.models import codec as JCODEC
+from roibasedimagecompression_tpu.models import roi_fused as JROI
+from roibasedimagecompression_tpu.models import segment as JSEG
+from roibasedimagecompression_tpu.ops import canny as JCANNY
+from roibasedimagecompression_torch import config as tcfg
+from roibasedimagecompression_torch.models import codec as TCODEC
+from roibasedimagecompression_torch.models import roi_fused as TROI
+from roibasedimagecompression_torch.models import segment as TSEG
+from roibasedimagecompression_torch.ops import canny as TCANNY
+from roibasedimagecompression_torch.utils.synthetic import synthetic_image
+
+CPU = torch.device("cpu")
+IMAGES = [(11, 128, 160), (12, 160, 128), (13, 96, 128)]
+
+
+def _regions(img):
+    """The JAX package's frontend: thresholds, masks and region lists."""
+    config = jcfg.CodecConfig()
+    low, high = JCANNY.select_thresholds_pair(img)
+    roi, nonroi = JROI.roi_masks_fast(img, config, low, high)
+    regs = JCODEC._extract_and_assign(img, roi, nonroi, config, jcfg.min_region_size(img.size))
+    return (low, high), (roi, nonroi), regs
+
+
+@pytest.mark.parametrize("seed,h,w", IMAGES)
+def test_frontend_matches_jax(seed, h, w):
+    img = synthetic_image(seed, h, w)
+    (low, high), (roi, nonroi), (jroi, jnon) = _regions(img)
+    assert TCANNY.select_thresholds_pair(img) == (low, high)
+    troi_mask, tnon_mask = TROI.roi_masks_fast(img, tcfg.CodecConfig(), low, high)
+    np.testing.assert_array_equal(troi_mask, roi)
+    np.testing.assert_array_equal(tnon_mask, nonroi)
+    troi, tnon = TCODEC._extract_and_assign(troi_mask, tnon_mask, tcfg.min_region_size(img.size))
+    for a, b in ((troi, jroi), (tnon, jnon)):
+        assert len(a) == len(b)
+        for ra, rb in zip(a, b):
+            assert (ra.bbox, ra.area, ra.kind) == (rb.bbox, rb.area, rb.kind)
+            np.testing.assert_array_equal(ra.bbox_mask, rb.bbox_mask)
+
+
+def _crops(img, regions):
+    roi, nonroi = regions
+    regs = list(nonroi) + list(roi)
+    crops = [img[r.bbox[0] : r.bbox[2], r.bbox[1] : r.bbox[3]] for r in regs]
+    return crops, [r.bbox_mask for r in regs]
+
+
+@pytest.mark.parametrize("seed,h,w", IMAGES)
+def test_split_scores_match_jax(seed, h, w):
+    img = synthetic_image(seed, h, w)
+    _, _, regs = _regions(img)
+    crops, masks = _crops(img, regs)
+    # Whole-image and one transposed crop as extra rows.
+    crops.append(img)
+    masks.append(np.ones(img.shape[:2], bool))
+    want = JSEG.split_scores_many(crops, masks)
+    got = TSEG.split_scores_many(crops, masks, CPU)
+    np.testing.assert_allclose(np.array(got), np.array(want), rtol=0, atol=1e-5)
+    n_want = [jcfg.logistic_segments(s[0], jcfg.segment_window(c.size)) for s, c in zip(want, crops)]
+    assert TSEG.optimal_segments_many(crops, masks, CPU) == n_want
+
+
+def test_split_score_device_batch_rows_equal_host_rows():
+    """Rows sliced from the device batch score exactly as host-packed rows."""
+    img = synthetic_image(14, 128, 160)
+    _, _, regs = _regions(img)
+    crops, masks = _crops(img, regs)
+    h, w = img.shape[:2]
+    reg_a = np.zeros((1, h, w), np.int32)
+    reg_b = np.zeros((1, h, w), np.int32)
+    sources = []
+    for j, r in enumerate(list(regs[1]) + list(regs[0])):
+        kind = 1 if r.kind == "roi" else 0
+        (reg_b if kind else reg_a)[0, r.bbox[0] : r.bbox[2], r.bbox[1] : r.bbox[3]][r.bbox_mask] = j + 1
+        sources.append((0, r.bbox[0], r.bbox[1], r.bbox[2] - r.bbox[0], r.bbox[3] - r.bbox[1], j + 1, kind))
+    dbatch = TSEG.DeviceBatch(img[None], reg_a, reg_b, CPU)
+    a = TSEG.split_scores_many(crops, masks, CPU, sources=sources, dbatch=dbatch)
+    b = TSEG.split_scores_many(crops, masks, CPU)
+    assert a == b
+
+
+@pytest.fixture()
+def slic_pallas_mode(monkeypatch):
+    """Run the JAX SLIC in its Pallas mode (the port's semantics).  The mode
+    is read at trace time, so cached traces are dropped on both sides."""
+    monkeypatch.setenv("RHCCQ_SLIC_PALLAS", "1")
+    jax.clear_caches()
+    yield
+    monkeypatch.delenv("RHCCQ_SLIC_PALLAS")
+    jax.clear_caches()
+
+
+@pytest.mark.parametrize("seed,h,w", IMAGES)
+def test_slic_matches_jax_pallas_mode(slic_pallas_mode, seed, h, w):
+    img = synthetic_image(seed, h, w)
+    _, _, regs = _regions(img)
+    crops, masks = _crops(img, regs)
+    n_segs = JSEG.optimal_segments_many(crops, masks)
+    want = JSEG.region_segments_many(crops, masks, n_segs, compactness=10.0, sigma=1.0)
+    got = TSEG.region_segments_many(crops, masks, n_segs, CPU, compactness=10.0, sigma=1.0)
+    for g, wnt, m in zip(got, want, masks):
+        assert g.shape == wnt.shape
+        assert g.max() == wnt.max()
+        assert np.mean(g[m] == wnt[m]) >= 0.999
