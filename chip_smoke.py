@@ -9,14 +9,24 @@ Phases, in order; any failed check exits non-zero:
   2. build: the native host runtime (g++) and both CUDA kernels (one nvcc
      per source, started together), with the seconds each took;
   3. kernel 1 (SLIC assign) against its plain version at main-path shapes
-     (B=8, MP=196,608, K=256, with 1e6 sentinel centres): ids must be equal;
-  4. kernel 2 (eps sweep) and its driver against the plain versions at the
-     bucket shapes (B, N) = (64, 1024), (16, 4096), (4, 10240), and against
-     the host union-find: labels must be equal;
+     (B=8, MP=196,608, K=256 and B=1, MP=221,184, K=64, with 1e6 sentinel
+     centres): ids must be equal
+     (an id may differ only where the two candidates' distances are within
+     one ulp: the plain version emulates the fused multiply-add in float64);
+  4. kernel 2 (eps sweep) against its plain version, and the loop kernel
+     against the plain loop and the host union-find, at the bucket shapes
+     (B, N) = (64, 1024), (16, 4096), (4, 10240): labels must be equal.  It
+     also counts the kernels, copies and synchronisations of one loop call.
+     Then the entry the tiers call, `eps_components_packed` (rows of packed
+     colours, -1 where a row has no point), at shapes the 4 encodes of phase 5
+     launch, (B, N) = (7, 9999), (26, 1024), (1, 64), against the plain loop
+     and the host union-find;
   5. end to end: encode + decode of 4 synthetic 768x512 images (Kodak's
      shape) through the public `encode`/`decode` on the card, with both
-     kernels' launch counts read around that run; checks shape, PSNR > 28 dB,
-     and agreement with the port's own CPU encode;
+     kernels' launch counts and launch shapes read around that run; checks
+     shape, PSNR > 28 dB, and agreement with the port's own CPU encode; then
+     the same 4 encodes once more inside a profiler window, for the share of
+     the window in which the card ran nothing;
   6. one JSON line of kernel measurements, then the card line, then the
      final {"ok": true, ...} line.
 
@@ -112,7 +122,19 @@ def check_slic_assign(device, b=8, mp=196_608, k=256, reps=20):
     if device.type == "cuda":
         torch.cuda.synchronize()
     n_diff = int((got != want).sum())
-    check(n_diff == 0, f"slic_assign disagrees with its plain version at {n_diff} pixels")
+    if n_diff:
+        # The plain version's fused multiply-add rounds twice (float64, then
+        # float32), so a distance can be one ulp off the card's.
+        bb, pp = torch.nonzero(got != want, as_tuple=True)
+        f64, c64 = feats[bb, pp].double(), centers.double()
+        for ids, who in ((got, "kernel"), (want, "plain")):
+            d2 = ((f64 - c64[bb, ids[bb, pp].long()]) ** 2).sum(-1)
+            print(f"[slic_assign] differing ids, {who}: {ids[bb, pp][:8].tolist()} d2 {d2[:8].tolist()}")
+        d2g = ((f64 - c64[bb, got[bb, pp].long()]) ** 2).sum(-1).float()
+        d2w = ((f64 - c64[bb, want[bb, pp].long()]) ** 2).sum(-1).float()
+        ulp = torch.maximum(d2g, d2w) * 2.0**-23
+        check(bool(((d2g - d2w).abs() <= ulp).all()),
+              f"slic_assign disagrees with its plain version at {n_diff} pixels by more than one ulp")
     check(int(got.max()) < 3 * k // 4, "a sentinel centre won an assignment")
     rec = {
         "name": "slic_assign", "route": "cuda",
@@ -158,6 +180,55 @@ def eps_inputs(device, b, n, seed=0):
     return t(pts), t(valid), t(groups), t(eps2), (pts, sizes, eps)
 
 
+def median_ms(fn, reps=5) -> float:
+    """Median host-clock milliseconds of `fn`, which must end synchronised."""
+    import statistics
+
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def count_device_calls(fn) -> dict:
+    """Kernels, copies/memsets and host synchronisations of one call of `fn`,
+    read from a profiler trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels, copies, syncs = [], 0, 0
+    for ev in prof.events():
+        on_card = ev.device_type == torch.autograd.DeviceType.CUDA
+        name = ev.name
+        if on_card and name.lower().startswith(("memcpy", "memset")):
+            copies += 1
+        elif on_card:
+            kernels.append(name.split("<")[0].split("(anonymous namespace)::")[-1].split("(")[0][-40:])
+        elif name in ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize"):
+            syncs += 1
+    return {"kernels": kernels, "copies": copies, "syncs": syncs - 1}  # less the closing one
+
+
+def sorted_eps_inputs(device, b, n, eps=64.0, seed=1):
+    """Distinct random colours sorted by packed value, one group, every point
+    valid: the order in which the tiers hand a run to the loop."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    packed = np.stack([np.sort(rng.choice(1 << 24, n, replace=False)) for _ in range(b)])
+    pts = np.stack([(packed >> 16) & 255, (packed >> 8) & 255, packed & 255], -1).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return (t(pts), t(np.ones((b, n), bool)), t(np.zeros((b, n), np.int32)),
+            t(np.full(b, np.float32(eps) ** 2, np.float32)))
+
+
 def check_eps_sweep(device, shapes=((64, 1024), (16, 4096), (4, 10240)), reps=10):
     import numpy as np
     import torch
@@ -165,7 +236,11 @@ def check_eps_sweep(device, shapes=((64, 1024), (16, 4096), (4, 10240)), reps=10
     from roibasedimagecompression_torch import native
     from roibasedimagecompression_torch.ops.cuda import epscc as EPS
 
+    on_card = device.type == "cuda"
     recs = []
+    # First-use costs of the plain loop's torch ops stay out of its times.
+    pts, valid, groups, eps2, _ = eps_inputs(device, 2, 64)
+    EPS.eps_components_rows(pts, valid, groups, eps2, sweep=EPS.eps_sweep_ref)
     for b, n in shapes:
         pts, valid, groups, eps2, (pts_np, sizes, eps) = eps_inputs(device, b, n)
         valid_u8 = valid.to(torch.uint8)
@@ -176,15 +251,15 @@ def check_eps_sweep(device, shapes=((64, 1024), (16, 4096), (4, 10240)), reps=10
         got = EPS.eps_sweep(pts, lab0, valid_u8, groups, eps2)
         want = EPS.eps_sweep_ref(pts, lab0, valid_u8, groups, eps2)
         check(bool((got == want).all()), f"eps_sweep disagrees with its plain version at {(b, n)}")
-        t0 = time.perf_counter()
         labels, sweeps = EPS.eps_components_rows(pts, valid, groups, eps2)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        driver_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
         ref_labels, ref_sweeps = EPS.eps_components_rows(
             pts, valid, groups, eps2, sweep=EPS.eps_sweep_ref
         )
-        check(bool((labels == ref_labels).all()), f"eps driver disagrees with the plain driver at {(b, n)}")
+        if on_card:
+            torch.cuda.synchronize()
+        plain_driver_ms = (time.perf_counter() - t0) * 1e3
+        check(bool((labels == ref_labels).all()), f"eps loop disagrees with the plain loop at {(b, n)}")
         # The host union-find on the same runs: one run per (row, group).
         lab_np = labels.cpu().numpy()
         packed = (
@@ -201,18 +276,103 @@ def check_eps_sweep(device, shapes=((64, 1024), (16, 4096), (4, 10240)), reps=10
         offset = np.repeat((starts[keep] % n), run_sizes[keep])
         check(
             bool((lab_np.reshape(-1)[pos] == nat + offset).all()),
-            f"eps driver disagrees with the host union-find at {(b, n)}",
+            f"eps loop disagrees with the host union-find at {(b, n)}",
         )
-        rec = {"shape": [b, n], "sweeps": sweeps, "driver_ms": driver_s * 1e3,
-               "max_abs_err": float((got.long() - want.long()).abs().max())}
-        ops = b * n * n * 12.0
+        rec = {"shape": [b, n], "sweeps": sweeps, "plain_sweeps": ref_sweeps,
+               "plain_driver_ms": plain_driver_ms,
+               "max_abs_err": float((got.long() - want.long()).abs().max()),
+               "loop_max_abs_err": float((labels.long() - ref_labels.long()).abs().max())}
+        # What this run's data needs: valid rows against valid columns, 12
+        # operations a pair (3 sub, 3 mul, 3 add, 2 compares, select).
+        ops = float((sizes.astype(np.float64) ** 2).sum()) * 12.0
         nbytes = b * n * (12 + 4 + 1 + 4) + b * 4 + b * n * 4
         rec["bound_ms"], rec["bound_by"] = bound_ms(ops, nbytes)
-        if device.type == "cuda":
+        if on_card:
             rec["ms"] = time_cuda(lambda: EPS.eps_sweep(pts, lab0, valid_u8, groups, eps2), reps)
             rec["plain_ms"] = time_cuda(
                 lambda: EPS.eps_sweep_ref(pts, lab0, valid_u8, groups, eps2), max(2, reps // 5), 1
             )
+            rec["driver_ms"] = median_ms(lambda: EPS.eps_components_rows(pts, valid, groups, eps2))
+            rec["driver_calls"] = count_device_calls(
+                lambda: EPS.eps_components_rows(pts, valid, groups, eps2)
+            )
+        recs.append(rec)
+    # Rows sorted as the tiers sort them (the far-tile skip's case), eps = 64
+    # (quality 50), at the largest bucket.
+    b, n = shapes[-1]
+    pts, valid, groups, eps2 = sorted_eps_inputs(device, b, n)
+    labels, _ = EPS.eps_components_rows(pts, valid, groups, eps2)
+    ref_labels, _ = EPS.eps_components_rows(pts, valid, groups, eps2, sweep=EPS.eps_sweep_ref)
+    check(bool((labels == ref_labels).all()), "eps loop disagrees with the plain loop on sorted rows")
+    return recs
+
+
+def packed_eps_inputs(b, n, seed=2):
+    """Rows as the tiers build them: distinct colours of one run in clumps,
+    sorted by packed value, ragged (row 0 as full as its clumps allow), -1
+    where the row has no point; eps of quality 90, 60, 50 and 20.  numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rows = np.full((b, n), -1, np.int32)
+    sizes = np.zeros(b, np.int64)
+    for r in range(b):
+        want = n if r == 0 else int(rng.integers(max(1, n // 2), n + 1))
+        centers = rng.integers(0, 256, (12, 3))
+        pts = np.clip(centers[rng.integers(0, 12, 2 * want)] + rng.integers(-40, 41, (2 * want, 3)), 0, 255)
+        packed = np.unique(pts[:, 0] | (pts[:, 1] << 8) | (pts[:, 2] << 16))
+        packed = np.sort(rng.choice(packed, min(want, len(packed)), replace=False))
+        rows[r, : len(packed)] = packed
+        sizes[r] = len(packed)
+    eps = rng.choice([12.8, 51.2, 64.0, 102.4], b)
+    return rows, sizes, eps
+
+
+def check_eps_packed(device, shapes=((7, 9999), (26, 1024), (1, 64))):
+    """`eps_components_packed`, the entry the tiers call, at shapes the main
+    path launches: the kernel's labels against the plain loop and against
+    the host union-find on the same runs."""
+    import numpy as np
+    import torch
+
+    from roibasedimagecompression_torch import native
+    from roibasedimagecompression_torch.ops.cuda import epscc as EPS
+
+    recs = []
+    for b, n in shapes:
+        rows_np, sizes, eps = packed_eps_inputs(b, n)
+        eps2_np = (eps.astype(np.float32) ** 2).astype(np.float32)
+        rows, eps2 = torch.from_numpy(rows_np).to(device), torch.from_numpy(eps2_np).to(device)
+        labels, sweeps = EPS.eps_components_packed(rows, eps2)
+        # The plain loop on the same device, on the colours unpacked to points.
+        valid = rows >= 0
+        safe = torch.where(valid, rows, torch.zeros_like(rows))
+        points = torch.stack([(safe >> sh) & 0xFF for sh in (0, 8, 16)], dim=-1).float()
+        t0 = time.perf_counter()
+        ref_labels, ref_sweeps = EPS.eps_components_rows(
+            points, valid, torch.zeros_like(rows), eps2, sweep=EPS.eps_sweep_ref
+        )
+        ref_np = ref_labels.cpu().numpy()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        lab_np = labels.cpu().numpy()
+        check(bool((lab_np == ref_np).all()),
+              f"eps_components_packed disagrees with the plain loop at {(b, n)}")
+        starts = np.arange(b, dtype=np.int64) * n
+        nat = native.epscc_labels_runs(rows_np.reshape(-1), starts, sizes, eps)
+        pos, _, _ = native.flat_run_positions(starts, sizes)
+        check(bool((lab_np.reshape(-1)[pos] == nat).all()),
+              f"eps_components_packed disagrees with the host union-find at {(b, n)}")
+        check(bool((lab_np[rows_np < 0] == n).all()), f"an absent point got a label at {(b, n)}")
+        rec = {"shape": [b, n], "entry": "packed", "sweeps": sweeps, "plain_sweeps": ref_sweeps,
+               "plain_driver_ms": plain_ms, "components": int((lab_np == np.arange(n)[None, :]).sum()),
+               "loop_max_abs_err": float(np.abs(lab_np.astype(np.int64) - ref_np).max())}
+        ops = float((sizes.astype(np.float64) ** 2).sum()) * 12.0
+        nbytes = b * n * 4 + b * 4 + b * n * 4
+        one, rec["bound_by"] = bound_ms(ops, nbytes)
+        rec["bound_ms"] = sweeps * one
+        if device.type == "cuda":
+            rec["driver_ms"] = median_ms(lambda: EPS.eps_components_packed(rows, eps2))
+            rec["driver_calls"] = count_device_calls(lambda: EPS.eps_components_packed(rows, eps2))
         recs.append(rec)
     return recs
 
@@ -261,14 +421,20 @@ def run_end_to_end(device, n_images=4, h=512, w=768, compare_cpu=True):
     if device.type == "cuda":
         torch.cuda.synchronize()
     timing.reset_stages()
-    SA.launches = 0
-    EPS.launches = 0
+    SA.launches = EPS.launches = EPS.sweep_launches = EPS.rounds = 0
+    SA.launch_shapes.clear()
+    EPS.loop_shapes.clear()
     datas, secs = [], []
     for img in images:
         t0 = time.perf_counter()
         datas.append(rtt.encode(img, device=device))
         secs.append(time.perf_counter() - t0)
-    launches = {"slic_assign": SA.launches, "eps_sweep": EPS.launches}
+    launches = {"slic_assign": SA.launches, "eps_components": EPS.launches,
+                "eps_sweep_alone": EPS.sweep_launches, "eps_rounds": EPS.rounds}
+    shapes = {
+        "slic_assign (B, MP, K)": {str(k): v for k, v in sorted(SA.launch_shapes.items())},
+        "eps loop (B, N)": {str(k): v for k, v in sorted(EPS.loop_shapes.items())},
+    }
     stages = timing.stage_report()
     results = []
     for img, data, s in zip(images, datas, secs):
@@ -292,7 +458,36 @@ def run_end_to_end(device, n_images=4, h=512, w=768, compare_cpu=True):
                     and abs(r["dbpp_rel_cpu"]) <= 0.01,
                     f"image {i}: CUDA encode departs from the CPU encode: {r}",
                 )
-    return results, launches, stages
+    idle = device_idle_share(lambda: [rtt.encode(img, device=device) for img in images]) \
+        if device.type == "cuda" else None
+    return results, launches, shapes, stages, idle
+
+
+def device_idle_share(fn) -> dict:
+    """Run `fn` inside one profiler window and return the window's length on
+    the host clock, the time in which at least one kernel or copy ran on the
+    card (union of their intervals), and the share in which none did."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted(
+        (ev.time_range.start, ev.time_range.end) for ev in prof.events()
+        if ev.device_type == torch.autograd.DeviceType.CUDA
+    )
+    check(len(spans) > 0, "the profiler window recorded no work on the card")
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+    return {"window_ms": window_us / 1e3, "busy_ms": busy_us / 1e3, "device_events": len(spans),
+            "idle_share": 1.0 - busy_us / window_us}
 
 
 def main() -> int:
@@ -337,24 +532,38 @@ def main() -> int:
                 print(f"[build]   {line.strip()}")
 
     # -- 3. kernel 1 -------------------------------------------------------------
-    k1 = check_slic_assign(device)
-    print(f"[slic_assign] B,MP,K={k1['shape']}: ids equal; kernel {k1['ms']:.3f} ms, "
-          f"plain {k1['plain_ms']:.3f} ms, cdist+argmin {k1['library_ms']:.3f} ms, "
-          f"bound {k1['bound_ms']:.4f} ms ({k1['bound_by']}) [{card}]")
+    # The batch shape of a full SLIC bucket, and the shape the 4 encodes of
+    # phase 5 launch most (one 768x512 region, 64 centres).
+    k1, k1_single = check_slic_assign(device), check_slic_assign(device, b=1, mp=221_184, k=64)
+    for r in (k1, k1_single):
+        print(f"[slic_assign] B,MP,K={r['shape']}: ids equal; kernel {r['ms']:.3f} ms, "
+              f"plain {r['plain_ms']:.3f} ms, cdist+argmin {r['library_ms']:.3f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
 
     # -- 4. kernel 2 -------------------------------------------------------------
-    k2 = check_eps_sweep(device)
+    k2, k2_packed = check_eps_sweep(device), check_eps_packed(device)
     for r in k2:
         print(f"[eps_sweep] B,N={r['shape']}: labels equal (kernel, plain, union-find); "
               f"{r['ms']:.3f} ms/sweep, plain {r['plain_ms']:.3f} ms/sweep, "
-              f"{r['sweeps']} sweeps/call, driver {r['driver_ms']:.1f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
+    for r in k2 + k2_packed:
+        calls = r["driver_calls"]
+        print(f"[eps_loop] {r.get('entry', 'points')} B,N={r['shape']}: {r['sweeps']} rounds on the card "
+              f"(plain loop {r['plain_sweeps']}, {r['plain_driver_ms']:.1f} ms), "
+              f"driver {r['driver_ms']:.3f} ms/call; one call = "
+              f"{len(calls['kernels'])} kernels {calls['kernels']}, {calls['copies']} copies/memsets, "
+              f"{calls['syncs']} host synchronisations [{card}]")
+        check(len(calls["kernels"]) <= 4 and calls["syncs"] <= 2,
+              f"the eps loop at {r['shape']} ran {calls} for {r['sweeps']} rounds: it is not on the card")
 
     # -- 5. end to end ------------------------------------------------------------
-    results, launches, stages = run_end_to_end(device)
-    for name, n in launches.items():
-        check(n > 0, f"the main path launched {name} no time")
+    results, launches, shapes, stages, idle = run_end_to_end(device)
+    for name in ("slic_assign", "eps_components", "eps_rounds"):
+        check(launches[name] > 0, f"the main path launched {name} no time")
     print(f"[e2e] launches over 4 encodes: {launches}")
+    for name, hist in shapes.items():
+        print(f"[e2e] launch shapes, {name}: {json.dumps(hist)}")
+    print(f"[e2e] profiler window over the 4 warm encodes: {json.dumps(idle)} [{card}]")
     for i, r in enumerate(results):
         print(f"[e2e] image {i}: {json.dumps(r)} [{card}]")
     mean_s = sum(r["seconds"] for r in results) / len(results)
@@ -363,18 +572,42 @@ def main() -> int:
         print(f"[e2e] stage {name}: {st['seconds']:.3f} s over {st['calls']} calls [{card}]")
 
     # -- 6. kernels line -------------------------------------------------------------
-    big = k2[-1]
+    big, big_packed = k2[-1], k2_packed[0]
     kernels = [
         {k: k1[k] for k in ("name", "route", "source", "replaces")}
         | {"launches": launches["slic_assign"], "max_abs_err": k1["max_abs_err"],
            "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-           "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]},
+           "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
+           "per_shape": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms")}
+                         for r in (k1, k1_single)]},
         {"name": "eps_sweep", "route": "cuda",
          "source": "roibasedimagecompression_torch/csrc/epscc.cu",
          "replaces": "roibasedimagecompression_tpu/ops/pallas/epscc.py:33",
-         "launches": launches["eps_sweep"], "max_abs_err": max(r["max_abs_err"] for r in k2),
+         # On the main path the sweep's code runs inside the loop kernel
+         # (eps_components_kernel), so `launches` are that kernel's, counted
+         # beside its launch; the sweep kernel alone (eps_sweep_kernel, which
+         # `ms` times) is launched by no encode.
+         "launches": launches["eps_components"], "launches_alone": launches["eps_sweep_alone"],
+         "max_abs_err": max(r["max_abs_err"] for r in k2),
          "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
-         "bound_by": big["bound_by"], "library_ms": None},
+         "bound_by": big["bound_by"], "library_ms": None,
+         "per_shape": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms")} for r in k2]},
+        {"name": "eps_components", "route": "cuda",
+         "source": "roibasedimagecompression_torch/csrc/epscc.cu",
+         "replaces": "roibasedimagecompression_tpu/ops/pallas/epscc.py:97",
+         "launches": launches["eps_components"], "rounds": launches["eps_rounds"],
+         "max_abs_err": max(r["loop_max_abs_err"] for r in k2 + k2_packed),
+         # One call of the driver (pack, loop kernel, read-back) through the
+         # entry and at the largest shape the encodes use; its bound is this
+         # call's count of rounds times one sweep's bound.
+         "ms": big_packed["driver_ms"], "plain_ms": big_packed["plain_driver_ms"],
+         "bound_ms": big_packed["bound_ms"], "bound_by": big_packed["bound_by"],
+         "library_ms": None,
+         "per_shape": [{"shape": r["shape"], "entry": "points", "sweeps": r["sweeps"],
+                        "driver_ms": r["driver_ms"], "plain_driver_ms": r["plain_driver_ms"],
+                        "bound_ms": r["sweeps"] * r["bound_ms"]} for r in k2]
+                      + [{k: r[k] for k in ("shape", "entry", "sweeps", "components", "driver_ms",
+                                            "plain_driver_ms", "bound_ms")} for r in k2_packed]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -102,32 +102,25 @@ def _assign_trivial_runs(cluster_keys, colors, starts, sizes_inout, eps,
     return np.int64(len(triv))
 
 
-def _epscc_width(cap: int) -> int:
-    """Row width of an eps-CC bucket on the card: the cap, rounded up to the
-    kernel's 256-point tile above 256 (9999 -> 10240)."""
-    return cap if cap <= 256 else -(-cap // 256) * 256
+def _epscc_labels_device(color_of_pair, starts, sizes, eps, cap, device) -> np.ndarray:
+    """Run-major int32 labels of the runs through the eps-components kernel.
 
-
-def _epscc_labels_device(colors, starts, sizes, eps, cap, device) -> np.ndarray:
-    """Run-major int32 labels of the runs through the eps-sweep kernel."""
+    One upload per bucket: the (b, cap) packed colours (-1 where a run has no
+    point, from which the card derives validity) and the b float32 eps^2
+    values travel in one int32 buffer."""
     b = len(starts)
-    n = _epscc_width(cap)
     flat_pos, flat_row, within = native.flat_run_positions(starts, sizes)
-    pts = np.zeros((b, n, 3), np.float32)
-    pts[flat_row, within] = colors[flat_pos]
-    valid = np.zeros((b, n), bool)
-    valid[flat_row, within] = True
-    eps2 = np.asarray(eps, np.float32) ** 2
-    labels, _ = EPS.eps_components_rows(
-        torch.from_numpy(pts).to(device),
-        torch.from_numpy(valid).to(device),
-        torch.zeros((b, n), dtype=torch.int32, device=device),
-        torch.from_numpy(eps2).to(device),
+    buf = np.full(b * cap + b, -1, np.int32)
+    buf[flat_row * cap + within] = color_of_pair[flat_pos]
+    buf[b * cap :] = (np.asarray(eps, np.float32) ** 2).view(np.int32)
+    dev_buf = torch.from_numpy(buf).to(device)
+    labels, _ = EPS.eps_components_packed(
+        dev_buf[: b * cap].view(b, cap), dev_buf[b * cap :].view(torch.float32)
     )
     return labels.cpu().numpy()[flat_row, within]
 
 
-def _epscc_assign_keys(cluster_keys, colors, color_of_pair, starts, sizes_masked,
+def _epscc_assign_keys(cluster_keys, color_of_pair, starts, sizes_masked,
                        eps, key_base, device):
     """Assign eps-CC cluster keys for every non-zero run, in place.
 
@@ -138,14 +131,15 @@ def _epscc_assign_keys(cluster_keys, colors, color_of_pair, starts, sizes_masked
     advanced key_base.
     """
     for cap, ids in _bucketize(sizes_masked, _BUCKETS).items():
-        if torch.device(device).type == "cuda":
-            labels = _epscc_labels_device(
-                colors, starts[ids], sizes_masked[ids], eps[ids], cap, device
-            )
-        else:
-            labels = native.epscc_labels_runs(
-                color_of_pair, starts[ids], sizes_masked[ids], eps[ids]
-            )
+        with stage_timer("epscc.labels"):
+            if torch.device(device).type == "cuda":
+                labels = _epscc_labels_device(
+                    color_of_pair, starts[ids], sizes_masked[ids], eps[ids], cap, device
+                )
+            else:
+                labels = native.epscc_labels_runs(
+                    color_of_pair, starts[ids], sizes_masked[ids], eps[ids]
+                )
         flat_pos, flat_row, _ = native.flat_run_positions(starts[ids], sizes_masked[ids])
         cluster_keys[flat_pos] = key_base + flat_row * np.int64(cap + 1) + labels
         key_base += np.int64(len(ids)) * (cap + 1)
@@ -208,20 +202,21 @@ def tier1_table(
             cluster_keys, colors, starts, small_sizes, eps, key_base
         )
         key_base = _epscc_assign_keys(
-            cluster_keys, colors, color_of_pair, starts, small_sizes, eps,
+            cluster_keys, color_of_pair, starts, small_sizes, eps,
             key_base, device,
         )
         if len(big):
-            labs = CL.kmeans_host_many(
-                [
-                    (
-                        colors[starts[p] : starts[p] + sizes[p]],
-                        cfg.kmeans_n_clusters(int(sizes[p]), qualities[p]),
-                    )
-                    for p in big
-                ],
-                device, seed=seed,
-            )
+            with stage_timer("epscc.kmeans"):
+                labs = CL.kmeans_host_many(
+                    [
+                        (
+                            colors[starts[p] : starts[p] + sizes[p]],
+                            cfg.kmeans_n_clusters(int(sizes[p]), qualities[p]),
+                        )
+                        for p in big
+                    ],
+                    device, seed=seed,
+                )
             for pid, lab in zip(big, labs):
                 s, n = starts[pid], sizes[pid]
                 cluster_keys[s : s + n] = key_base + lab
@@ -305,20 +300,21 @@ def cluster_pair_table(
             cluster_keys, colors, nb_starts, small_sizes, eps, key_base
         )
         key_base = _epscc_assign_keys(
-            cluster_keys, colors, color_of_pair, nb_starts, small_sizes, eps,
+            cluster_keys, color_of_pair, nb_starts, small_sizes, eps,
             key_base, device,
         )
         if len(big):
-            labs = CL.kmeans_host_many(
-                [
-                    (
-                        colors[nb_starts[r] : nb_starts[r] + nb_sizes[r]],
-                        cfg.kmeans_n_clusters(int(nb_sizes[r]), qualities[r]),
-                    )
-                    for r in big
-                ],
-                device, seed=seed,
-            )
+            with stage_timer("epscc.kmeans"):
+                labs = CL.kmeans_host_many(
+                    [
+                        (
+                            colors[nb_starts[r] : nb_starts[r] + nb_sizes[r]],
+                            cfg.kmeans_n_clusters(int(nb_sizes[r]), qualities[r]),
+                        )
+                        for r in big
+                    ],
+                    device, seed=seed,
+                )
             for row, lab in zip(big, labs):
                 s, m = nb_starts[row], nb_sizes[row]
                 cluster_keys[s : s + m] = key_base + lab

@@ -17,17 +17,23 @@ import subprocess
 import tempfile
 import threading
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 KERNELS = ("slic_assign", "epscc")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# kernel source -> (launch function, its argument types); every launch
-# function returns cudaGetLastError() as an int.
+# kernel source -> {launch function: its argument types}; every launch
+# function returns a cudaError_t as an int.
 _LAUNCHERS = {
-    "slic_assign": ("slic_assign_launch", [_P, _P, _P, _I, _I, _I, _P]),
-    "epscc": ("eps_sweep_launch", [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
+    "slic_assign": {"slic_assign_launch": [_P, _P, _P, _I, _I, _I, _P]},
+    "epscc": {
+        "eps_pack_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P],
+        "eps_sweep_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+        "eps_components_launch": [_P, _P, _P, _P, _P, _I, _I, _P],
+    },
 }
 
 NVCC_FLAGS = [
@@ -105,15 +111,23 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(lib_path(name))
             lib.kernel_error_string.restype = ctypes.c_char_p
             lib.kernel_error_string.argtypes = [_I]
-            fn_name, argtypes = _LAUNCHERS[name]
-            fn = getattr(lib, fn_name)
-            fn.restype = _I
-            fn.argtypes = argtypes
+            for fn_name, argtypes in _LAUNCHERS[name].items():
+                fn = getattr(lib, fn_name)
+                fn.restype = _I
+                fn.argtypes = argtypes
             _libs[name] = lib
         return lib
 
 
-def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error code."""
+def launch(lib: ctypes.CDLL, fn_name: str, device: torch.device, *args) -> None:
+    """Call the launch function `fn_name(*args, stream)` with `device`'s
+    current stream, on that device, and raise if it returns a CUDA error."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    stream = torch.cuda.current_stream(index).cuda_stream
+    if index == torch.cuda.current_device():
+        rc = getattr(lib, fn_name)(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            rc = getattr(lib, fn_name)(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"{what} launch failed: {lib.kernel_error_string(rc).decode()}")
+        raise RuntimeError(f"{fn_name} failed: {lib.kernel_error_string(rc).decode()}")

@@ -3,11 +3,20 @@
 `eps_sweep` is one masked-min label sweep (kernel `csrc/epscc.cu`, the
 counterpart of the JAX package's Pallas `eps_sweep_pallas`); on a CPU tensor
 it runs the plain version `eps_sweep_ref`.  `eps_components_rows` is the
-driver of `eps_components_pallas`: min-combine, ceil(log2 m) pointer-jump
-hops, and the loop until no label changes (one host sync per round).
+counterpart of the driver `eps_components_pallas`.  On a CUDA tensor the whole
+loop (sweeps, root chasing, the test for convergence) is one cooperative
+kernel: the host packs, launches once and reads the result.  On a CPU tensor,
+or with `sweep=eps_sweep_ref`, it runs the plain form of the same loop.
+
+Both loops lower labels monotonically to indices of the same component and
+stop after a round without a change, which is a fixed point of every edge: the
+labels are each component's least point index whatever the order of updates,
+so the count of sweeps may differ between the two and the labels may not.
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -15,7 +24,10 @@ from roibasedimagecompression_torch.ops.cuda import _build
 
 INT_MAX = 2**31 - 1
 
-launches = 0  # kernel launches since the last reset (chip_smoke reads it)
+launches = 0  # loop kernel (eps_components_kernel) launches since the last reset (chip_smoke reads it)
+sweep_launches = 0  # launches of the single sweep (eps_sweep_kernel) since the last reset
+rounds = 0  # rounds the loop kernel reported back since the last reset; not a launch count
+loop_shapes: collections.Counter = collections.Counter()  # (B, N) of every loop launch
 
 
 def eps_sweep_ref(points, labels, valid, groups, eps2) -> torch.Tensor:
@@ -37,10 +49,33 @@ def eps_sweep_ref(points, labels, valid, groups, eps2) -> torch.Tensor:
     return out
 
 
+def packed_adjacency(packed_i: torch.Tensor, packed_j: torch.Tensor, eps2: torch.Tensor) -> torch.Tensor:
+    """The kernel's distance predicate in plain integer arithmetic: byte-wise
+    absolute difference of two packed colours (r | g << 8 | b << 16), its dot
+    product with itself, and `<= floor(eps2)`; eps2 float32, >= 0."""
+    d2 = torch.zeros((), dtype=torch.int64, device=packed_i.device)
+    for shift in (0, 8, 16):
+        diff = ((packed_i >> shift) & 0xFF).long() - ((packed_j >> shift) & 0xFF).long()
+        d2 = d2 + diff.abs() * diff.abs()
+    return d2 <= torch.floor(eps2).long()
+
+
+def _pack(lib, dev, b, n, points, rows, valid, groups, eps2, fill_labels: bool):
+    """Launch the pack kernel; (packed, gcol, fill, meta) on the card."""
+    packed, gcol, fill = torch.empty((3, b, n), dtype=torch.int32, device=dev)
+    meta = torch.empty(4 * b + 4, dtype=torch.int32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    _build.launch(lib, "eps_pack_launch", dev, ptr(points), ptr(rows), ptr(valid), ptr(groups),
+                  eps2.data_ptr(), packed.data_ptr(), gcol.data_ptr(), fill.data_ptr(),
+                  int(fill_labels), meta.data_ptr(), b, n)
+    return packed, gcol, fill, meta
+
+
 def eps_sweep(points, labels, valid, groups, eps2) -> torch.Tensor:
-    """One sweep: points (B, N, 3) f32, labels/groups (B, N) int32, valid
-    (B, N) uint8, eps2 (B,) f32 -> (B, N) int32 (INT_MAX where no neighbor)."""
-    global launches
+    """One sweep: points (B, N, 3) f32 holding integers in [0, 255], labels and
+    groups (B, N) int32, valid (B, N) uint8, eps2 (B,) f32 -> (B, N) int32
+    (INT_MAX where no neighbor)."""
+    global sweep_launches
     b, n = labels.shape
     if points.shape != (b, n, 3) or valid.shape != (b, n) or groups.shape != (b, n) or eps2.shape != (b,):
         raise ValueError("eps_sweep: inconsistent shapes")
@@ -58,43 +93,108 @@ def eps_sweep(points, labels, valid, groups, eps2) -> torch.Tensor:
     if not all(t.is_contiguous() for t in (points, labels, valid, groups, eps2)):
         raise ValueError("eps_sweep takes contiguous tensors")
     lib = _build.load("epscc")
-    out = torch.empty((b, n), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.eps_sweep_launch(points.data_ptr(), labels.data_ptr(), valid.data_ptr(),
-                groups.data_ptr(), eps2.data_ptr(), out.data_ptr(), b, n, stream)
-    _build.check(lib, rc, "eps_sweep")
-    launches += 1
+    packed, gcol, out, meta = _pack(lib, dev, b, n, points, None, valid, groups, eps2, False)
+    _build.launch(lib, "eps_sweep_launch", dev, packed.data_ptr(), groups.data_ptr(),
+                  gcol.data_ptr(), labels.data_ptr(), out.data_ptr(), meta.data_ptr(), b, n)
+    sweep_launches += 1
     return out
+
+
+def _components_cuda(b, n, dev, points, rows, valid, groups, eps2):
+    """Pack, run the loop kernel, read back the round count: 2 launches and
+    one device-to-host read per call."""
+    global launches, rounds
+    if b == 0 or n == 0:
+        return torch.empty((b, n), dtype=torch.int32, device=dev), 0
+    lib = _build.load("epscc")
+    packed, gcol, lab, meta = _pack(lib, dev, b, n, points, rows, valid, groups, eps2, True)
+    boxes = torch.empty((b, -(-n // 256), 2), dtype=torch.int32, device=dev)
+    _build.launch(lib, "eps_components_launch", dev, packed.data_ptr(), gcol.data_ptr(),
+                  lab.data_ptr(), meta.data_ptr(), boxes.data_ptr(), b, n)
+    launches += 1
+    loop_shapes[(b, n)] += 1
+    meta = meta.cpu()
+    if int(meta[4 * b + 2]):
+        raise ValueError("eps components: colours must be integers in [0, 255]")
+    sweeps = int(meta[3 : 4 * b : 4].max()) + 2
+    rounds += sweeps
+    return lab, sweeps
+
+
+def plain_round(points, lab, valid, groups, eps2, active, sweep=eps_sweep_ref):
+    """One round of the loop on the batch rows `active` (B,) bool, in plain
+    PyTorch: sweep, min-combine, hook each lowered point's old root, chase all
+    labels to their roots.  Returns (labels, changed (B,) bool); rows that are
+    not active come back as they were."""
+    rows = torch.nonzero(active).flatten()
+    new = lab.clone()
+    if len(rows) == 0:
+        return new, torch.zeros_like(active)
+    v, old = valid[rows], lab[rows]
+    n = lab.shape[1]
+    proposed = sweep(points[rows].contiguous(), old.contiguous(), v.to(torch.uint8).contiguous(),
+                     groups[rows].contiguous(), eps2[rows].contiguous())
+    cur = torch.where(v, torch.minimum(old, proposed), old)
+    root = torch.where(v, old, torch.zeros_like(old)).long()
+    cur = cur.scatter_reduce(1, root, torch.where(v, cur, torch.full_like(cur, INT_MAX)), "amin")
+    for _ in range(max(1, (n - 1).bit_length())):
+        safe = torch.where(v, cur, torch.zeros_like(cur)).long()
+        hop = torch.where(v, torch.minimum(cur, torch.gather(cur, 1, safe)), cur)
+        if torch.equal(hop, cur):
+            break
+        cur = hop
+    new[rows] = cur
+    changed = torch.zeros_like(active)
+    changed[rows] = (cur != old).any(dim=1)
+    return new, changed
 
 
 def eps_components_rows(points, valid, groups, eps2, sweep=eps_sweep):
     """Connected components of each row's eps-graph.
 
-    points (B, N, 3) f32, valid (B, N) bool, groups (B, N) int32 (edges join
-    equal groups >= 0 only), eps2 (B,) f32.  Returns ((B, N) int32 labels,
-    sweeps): each component carries its minimum point index; invalid points
-    get N.  `sweep` is eps_sweep or, for a plain run on any device,
+    points (B, N, 3) f32 holding integers in [0, 255], valid (B, N) bool,
+    groups (B, N) int32 (edges join equal groups >= 0 only), eps2 (B,) f32.
+    Returns ((B, N) int32 labels, sweeps): each component carries its minimum
+    point index; invalid points get N; `sweeps` is the most rounds any row
+    took.  `sweep` is eps_sweep or, for a plain run on any device,
     eps_sweep_ref.
     """
     b, n = valid.shape
     dev = points.device
-    groups = torch.where(valid, groups, torch.full_like(groups, -1)).contiguous()
-    valid_u8 = valid.to(torch.uint8).contiguous()
+    if sweep is eps_sweep and dev.type == "cuda":
+        args = (points, valid.to(torch.uint8), groups, eps2)
+        if points.shape != (b, n, 3) or groups.shape != (b, n) or eps2.shape != (b,):
+            raise ValueError("eps_components_rows: inconsistent shapes")
+        if (points.dtype, groups.dtype, eps2.dtype) != (torch.float32, torch.int32, torch.float32):
+            raise ValueError("eps_components_rows: expected f32 points/eps2 and int32 groups")
+        if any(t.device != dev or not t.is_contiguous() for t in args):
+            raise ValueError("eps_components_rows takes contiguous tensors on one device")
+        return _components_cuda(b, n, dev, args[0], None, *args[1:])
+    groups = torch.where(valid, groups, torch.full_like(groups, -1))
     idx = torch.arange(n, dtype=torch.int32, device=dev).expand(b, n)
-    int_max = torch.full((b, n), INT_MAX, dtype=torch.int32, device=dev)
-    lab = torch.where(valid, idx, int_max).contiguous()
-    n_hops = max(1, (n - 1).bit_length())
+    lab = torch.where(valid, idx, torch.full_like(idx, INT_MAX)).contiguous()
+    active = torch.ones(b, dtype=torch.bool, device=dev)
     sweeps = 0
-    for _ in range(n):
-        proposed = sweep(points, lab, valid_u8, groups, eps2)
+    while bool(active.any()) and sweeps < n:
+        lab, active = plain_round(points, lab, valid, groups, eps2, active, sweep)
         sweeps += 1
-        new = torch.where(valid, torch.minimum(lab, proposed), int_max)
-        for _ in range(n_hops):
-            safe = torch.where(new < n, new, torch.zeros_like(new)).long()
-            new = torch.where(valid, torch.minimum(new, torch.gather(new, 1, safe)), int_max)
-        changed = bool((new != lab).any())
-        lab = new.contiguous()
-        if not changed:
-            break
     return torch.where(lab == INT_MAX, torch.full_like(lab, n), lab), sweeps
+
+
+def eps_components_packed(rows: torch.Tensor, eps2: torch.Tensor):
+    """`eps_components_rows` for rows of packed colours in one group: rows
+    (B, N) int32, r | g << 8 | b << 16 in any fixed byte order, -1 where the
+    row has no point; eps2 (B,) f32.  Validity is derived from the rows, so a
+    caller uploads one tensor per bucket."""
+    b, n = rows.shape
+    dev = rows.device
+    if rows.dtype != torch.int32 or eps2.dtype != torch.float32 or eps2.shape != (b,):
+        raise ValueError("eps_components_packed: expected (B, N) int32 rows and (B,) f32 eps2")
+    if dev.type == "cuda":
+        if eps2.device != dev or not (rows.is_contiguous() and eps2.is_contiguous()):
+            raise ValueError("eps_components_packed takes contiguous tensors on one device")
+        return _components_cuda(b, n, dev, None, rows, None, None, eps2)
+    valid = rows >= 0
+    safe = torch.where(valid, rows, torch.zeros_like(rows))
+    points = torch.stack([(safe >> s) & 0xFF for s in (0, 8, 16)], dim=-1).float()
+    return eps_components_rows(points, valid, torch.zeros_like(rows), eps2)

@@ -2,18 +2,28 @@
 
 The counterpart of the JAX package's Pallas `slic_assign_pallas`.  On a CUDA
 tensor `slic_assign` launches the kernel (or raises); on a CPU tensor it runs
-the plain PyTorch version `slic_assign_ref`, which accumulates the distance
-dimension by dimension and takes the first-index argmin, exactly as the
-kernel does.
+the plain PyTorch version `slic_assign_ref`, which rounds the distance where
+the kernel does and takes the first-index argmin.
+
+The distance is the JAX kernel's as XLA compiles it for the CPU: the sum
+`d2 + diff*diff` over the five dimensions is contracted into fused
+multiply-adds, except the product of dimension 1, which is rounded on its own
+before dimension 0 is fused onto it (both operands of that first add are
+products, and the left one is fused).  With this arithmetic the ids equal
+`slic_assign_pallas(interpret=True)` without a tie allowance.
 """
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
+from roibasedimagecompression_torch.ops.colors import fma32
 from roibasedimagecompression_torch.ops.cuda import _build
 
 launches = 0  # kernel launches since the last reset (chip_smoke reads it)
+launch_shapes: collections.Counter = collections.Counter()  # (B, MP, K) of every launch
 
 
 def slic_assign_ref(feats: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
@@ -21,15 +31,14 @@ def slic_assign_ref(feats: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     out = torch.empty(feats.shape[:2], dtype=torch.int32, device=feats.device)
     # Pixel chunks bound the (B, chunk, K) distance block; each pixel's id
     # depends on its own row only, so chunking does not change the result.
-    chunk = max(1, (1 << 24) // max(1, feats.shape[0] * centers.shape[1]))
+    chunk = max(1, (1 << 22) // max(1, feats.shape[0] * centers.shape[1]))
     for s in range(0, feats.shape[1], chunk):
         f = feats[:, s : s + chunk]
-        d2 = torch.zeros(
-            (f.shape[0], f.shape[1], centers.shape[1]), dtype=torch.float32, device=f.device
-        )
-        for d in range(feats.shape[2]):
+        diff = f[..., 1, None] - centers[:, None, :, 1]
+        d2 = diff * diff
+        for d in (0, 2, 3, 4):
             diff = f[..., d, None] - centers[:, None, :, d]
-            d2 = d2 + diff * diff
+            d2 = fma32(diff, diff, d2)
         out[:, s : s + chunk] = torch.argmin(d2, dim=2).int()
     return out
 
@@ -57,10 +66,8 @@ def slic_assign(feats: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     lib = _build.load("slic_assign")
     b, mp, _ = feats.shape
     out = torch.empty((b, mp), dtype=torch.int32, device=feats.device)
-    with torch.cuda.device(feats.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.slic_assign_launch(feats.data_ptr(), centers.data_ptr(), out.data_ptr(),
-                b, mp, centers.shape[1], stream)
-    _build.check(lib, rc, "slic_assign")
+    _build.launch(lib, "slic_assign_launch", feats.device, feats.data_ptr(), centers.data_ptr(),
+                  out.data_ptr(), b, mp, centers.shape[1])
     launches += 1
+    launch_shapes[(b, mp, centers.shape[1])] += 1
     return out

@@ -29,25 +29,26 @@ def cuda():
     return torch.device("cuda")
 
 
-def _assert_ids_equal_or_tied(got, want, feats, centers):
-    """Equal ids, except where both ids are at the minimal distance (the
-    Pallas interpret run contracts d2 + diff*diff into fused multiply-adds;
-    the kernel and its plain version round every step)."""
-    diff = got != want
-    assert diff.mean() < 1e-3, diff.mean()
-    if diff.any():
-        d2 = ((feats[:, None, :].astype(np.float64) - centers[None, :, :]) ** 2).sum(-1)
-        rows = np.flatnonzero(diff)
-        np.testing.assert_allclose(d2[rows, got[rows]], d2[rows, want[rows]], rtol=1e-6)
+def _near_tie_problem(rng, mp, k, scale):
+    """Random features and centres whose second half repeats the first half
+    moved by a few 1e-5: many pixels then have two candidates within an ulp
+    or two of each other, where a different rounding would flip the id."""
+    feats = (rng.random((mp, 5)) * scale).astype(np.float32)
+    centers = (rng.random((k, 5)) * scale).astype(np.float32)
+    centers[k // 2 :] = centers[: k - k // 2] + rng.integers(-2, 3, (k - k // 2, 5)).astype(
+        np.float32
+    ) * np.float32(1e-5)
+    return feats, centers
 
 
-def test_slic_assign_plain_matches_pallas(rng):
-    mp, k = 4096, 64
-    feats = rng.random((mp, 5)).astype(np.float32) * 100.0
-    centers = rng.random((k, 5)).astype(np.float32) * 100.0
+@pytest.mark.parametrize("seed,k,scale", [(0, 64, 100.0), (1, 256, 100.0), (2, 64, 1.0)])
+def test_slic_assign_plain_matches_pallas(seed, k, scale):
+    """No tie allowance: the plain version rounds where XLA's CPU code for the
+    Pallas kernel rounds, so every id is equal, near-ties included."""
+    feats, centers = _near_tie_problem(np.random.default_rng(seed), 40960, k, scale)
     want = np.asarray(JSA.slic_assign_pallas(jnp.asarray(feats), jnp.asarray(centers), interpret=True))
     got = TSA.slic_assign(torch.from_numpy(feats)[None], torch.from_numpy(centers)[None])[0].numpy()
-    _assert_ids_equal_or_tied(got, want, feats, centers)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_slic_assign_plain_sentinel(rng):
@@ -58,7 +59,7 @@ def test_slic_assign_plain_sentinel(rng):
     assert got.max() < 3
     for b in range(2):
         want = np.asarray(JSA.slic_assign_pallas(jnp.asarray(feats[b]), jnp.asarray(centers[b]), interpret=True))
-        _assert_ids_equal_or_tied(got[b], want, feats[b], centers[b])
+        np.testing.assert_array_equal(got[b], want)
 
 
 def _eps_setup(rng, n=700, npad=1024):
@@ -132,6 +133,117 @@ def test_eps_rows_driver_batched(rng):
         np.testing.assert_array_equal(got[r].numpy(), want)
 
 
+@pytest.mark.parametrize("q0", [1, 26, 51, 76])
+def test_packed_adjacency_matches_float(rng, q0):
+    """The kernel's integer predicate (byte-wise |a - b|, dot with itself,
+    <= floor(eps2)) against the float32 predicate of eps_sweep_ref, for every
+    eps of the quality law 128 - 1.28 q (eps == 0 -> 1.0)."""
+    n = 192
+    cols = rng.integers(0, 256, (n, 3))
+    cols[:4] = [[0, 0, 0], [255, 255, 255], [0, 255, 0], [255, 0, 255]]
+    base = cols[rng.integers(0, n, n // 2)]
+    cols[n // 2 :] = np.clip(base + rng.integers(-70, 71, base.shape), 0, 255)
+    packed = torch.from_numpy((cols[:, 0] | (cols[:, 1] << 8) | (cols[:, 2] << 16)).astype(np.int32))
+    pts = torch.from_numpy(cols.astype(np.float32))[None]
+    lab = torch.arange(n, dtype=torch.int32)[None]
+    ones = torch.ones((1, n), dtype=torch.uint8)
+    zeros = torch.zeros((1, n), dtype=torch.int32)
+    for q in range(q0, q0 + 25):
+        eps = 128.0 - 1.28 * q
+        eps = 1.0 if eps == 0 else eps
+        eps2 = torch.tensor([np.float32(eps) ** 2], dtype=torch.float32)
+        adj = TEPS.packed_adjacency(packed[:, None], packed[None, :], eps2[0])
+        # The float32 predicate, computed as eps_sweep_ref computes it; the
+        # last assert ties it to eps_sweep_ref's own output.
+        d2 = torch.zeros((n, n), dtype=torch.float32)
+        for ch in range(3):
+            diff = pts[0, :, ch, None] - pts[0, None, :, ch]
+            d2 = d2 + diff * diff
+        want = d2 <= eps2[0]
+        assert torch.equal(adj, want), q
+        got = torch.where(adj, lab, torch.full_like(lab, TEPS.INT_MAX)).min(dim=1).values
+        assert torch.equal(got.int(), TEPS.eps_sweep_ref(pts, lab, ones, zeros, eps2)[0]), q
+
+
+def _old_driver(points, valid, groups, eps2):
+    """The out-of-place loop the port shipped first: sweep every row, combine,
+    ceil(log2 n) pointer hops, until nothing changes."""
+    b, n = valid.shape
+    groups = torch.where(valid, groups, torch.full_like(groups, -1))
+    int_max = torch.full((b, n), TEPS.INT_MAX, dtype=torch.int32)
+    lab = torch.where(valid, torch.arange(n, dtype=torch.int32).expand(b, n), int_max)
+    for _ in range(n):
+        proposed = TEPS.eps_sweep_ref(points, lab, valid.to(torch.uint8), groups, eps2)
+        new = torch.where(valid, torch.minimum(lab, proposed), int_max)
+        for _ in range(max(1, (n - 1).bit_length())):
+            safe = torch.where(new < n, new, torch.zeros_like(new)).long()
+            new = torch.where(valid, torch.minimum(new, torch.gather(new, 1, safe)), int_max)
+        if torch.equal(new, lab):
+            break
+        lab = new
+    return torch.where(lab == TEPS.INT_MAX, torch.full_like(lab, n), lab)
+
+
+def test_eps_new_loop_matches_old_driver_pallas_and_native(rng):
+    """Ragged rows with two groups each: the loop with frozen rows, root
+    hooking and root chasing gives the labels of the old out-of-place driver,
+    of the Pallas driver and of the host union-find; one more round on the
+    converged labels changes nothing."""
+    b, n = 4, 300
+    eps = np.array([12.8, 51.2, 64.0, 102.4])
+    P = np.zeros((b, n, 3), np.float32)
+    valid = np.zeros((b, n), bool)
+    groups = np.full((b, n), -1, np.int32)
+    sizes = []
+    for r in range(b):
+        pts = np.unique(rng.integers(0, 256, (int(rng.integers(40, n)), 3)), axis=0)
+        m = len(pts)
+        sizes.append(m)
+        P[r, :m] = pts
+        valid[r, :m] = True
+        groups[r, :m] = np.where(np.arange(m) < m // 2, 0, 5)
+    eps2 = torch.from_numpy((eps.astype(np.float32) ** 2).astype(np.float32))
+    args = (torch.from_numpy(P), torch.from_numpy(valid), torch.from_numpy(groups), eps2)
+    got, sweeps = TEPS.eps_components_rows(*args)
+    assert 1 <= sweeps < n
+    assert torch.equal(got, _old_driver(*args))
+    for r in range(b):
+        want = np.asarray(JEPS.eps_components_pallas(
+            jnp.asarray(P[r]), jnp.float32(eps[r]), jnp.asarray(valid[r]), jnp.asarray(groups[r]),
+            interpret=True,
+        ))
+        np.testing.assert_array_equal(got[r].numpy(), want)
+        m, h = sizes[r], sizes[r] // 2
+        packed = ((P[r, :m, 0].astype(np.int64) << 16) | (P[r, :m, 1].astype(np.int64) << 8)
+                  | P[r, :m, 2].astype(np.int64)).astype(np.int32)
+        nat = tnative.epscc_labels_runs(packed, np.array([0, h]), np.array([h, m - h]), np.array([eps[r]] * 2))
+        np.testing.assert_array_equal(nat[:h], got[r, :h].numpy())
+        np.testing.assert_array_equal(nat[h:] + h, got[r, h:m].numpy())
+    # Extra rounds after convergence, on every row, change nothing.
+    lab = torch.where(args[1], got, torch.full_like(got, TEPS.INT_MAX))
+    g = torch.where(args[1], args[2], torch.full_like(args[2], -1))
+    for _ in range(2):
+        again, changed = TEPS.plain_round(args[0], lab, args[1], g, eps2, torch.ones(b, dtype=torch.bool))
+        assert not bool(changed.any())
+        assert torch.equal(again, lab)
+
+
+def test_eps_components_packed_matches_union_find(rng):
+    """The one-upload form (packed colours, -1 where absent, validity derived
+    from the rows) on the bucket layout of the tiers, against the union-find."""
+    from roibasedimagecompression_torch.models import quantize_batched as QB
+
+    runs = [np.unique(rng.integers(0, 256, (int(m), 3)), axis=0) for m in (50, 3, 64, 17)]
+    colors = np.concatenate(runs)
+    packed = ((colors[:, 0] << 16) | (colors[:, 1] << 8) | colors[:, 2]).astype(np.int32)
+    sizes = np.array([len(r) for r in runs])
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    eps = np.array([64.0, 1.0, 25.6, 115.2])
+    want = tnative.epscc_labels_runs(packed, starts, sizes, eps)
+    got = QB._epscc_labels_device(packed, starts, sizes, eps, 64, torch.device("cpu"))
+    np.testing.assert_array_equal(got, want)
+
+
 def _kmeans_problem(rng, b, m, n_valid):
     centers = rng.integers(0, 256, (b, 9, 3))
     pick = rng.integers(0, 9, (b, m))
@@ -180,8 +292,10 @@ def test_kmeans_host_many_matches_jax(rng):
 
 
 @pytest.mark.cuda
-def test_cuda_slic_assign_matches_plain(cuda, rng):
-    b, mp, k = 3, 20480, 256
+@pytest.mark.parametrize("mp", [20480, 20483, 1023])
+def test_cuda_slic_assign_matches_plain(cuda, rng, mp):
+    """MP on and off the kernel's 4-pixels-per-thread, 1024-pixel tile."""
+    b, k = 3, 256
     feats = torch.from_numpy((rng.random((b, mp, 5)) * 200).astype(np.float32)).to(cuda)
     centers = feats[:, :k].clone()
     centers[:, 200:] = 1e6
@@ -194,18 +308,50 @@ def test_cuda_slic_assign_matches_plain(cuda, rng):
     assert int(got.max()) < 200
 
 
-@pytest.mark.cuda
-def test_cuda_eps_driver_matches_plain(cuda, rng):
-    b, n = 6, 1024
+def _cuda_eps_problem(rng, b, n):
     P = np.zeros((b, n, 3), np.float32)
     valid = np.zeros((b, n), bool)
+    groups = np.full((b, n), -1, np.int32)
     for r in range(b):
-        pts = np.unique(rng.integers(0, 256, (int(rng.integers(100, n)), 3)), axis=0)
+        pts = np.unique(rng.integers(0, 256, (int(rng.integers(n // 8, n)), 3)), axis=0)
         P[r, : len(pts)] = pts
         valid[r, : len(pts)] = True
-    groups = torch.zeros((b, n), dtype=torch.int32)
-    eps2 = torch.tensor([np.float32(e) ** 2 for e in (10, 20, 40, 60, 80, 100)])
-    args = (torch.from_numpy(P), torch.from_numpy(valid), groups, eps2)
+        groups[r, : len(pts)] = np.arange(len(pts)) % 2
+    eps2 = torch.tensor([np.float32(e) ** 2 for e in np.linspace(10, 100, b)], dtype=torch.float32)
+    return torch.from_numpy(P), torch.from_numpy(valid), torch.from_numpy(groups), eps2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1024, 1000, 700, 77])
+def test_cuda_eps_driver_matches_plain(cuda, rng, n):
+    """N on and off the kernel's 256-column and 512-row tiles, two
+    interleaved groups per row."""
+    args = _cuda_eps_problem(rng, 6, n)
     want, _ = TEPS.eps_components_rows(*args, sweep=TEPS.eps_sweep_ref)
-    got, _ = TEPS.eps_components_rows(*(a.to(cuda) for a in args))
+    before = TEPS.launches
+    got, sweeps = TEPS.eps_components_rows(*(a.to(cuda) for a in args))
+    assert TEPS.launches == before + 1 and sweeps >= 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1024, 700])
+def test_cuda_eps_sweep_matches_plain(cuda, rng, n):
+    pts, valid, groups, eps2 = _cuda_eps_problem(rng, 5, n)
+    lab = torch.from_numpy(rng.permutation(5 * n).reshape(5, n).astype(np.int32))
+    args = (pts, lab, valid.to(torch.uint8), groups, eps2)
+    want = TEPS.eps_sweep_ref(*args)
+    before = TEPS.sweep_launches
+    got = TEPS.eps_sweep(*(a.to(cuda) for a in args))
+    assert TEPS.sweep_launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_eps_packed_matches_plain(cuda, rng):
+    pts, valid, _, eps2 = _cuda_eps_problem(rng, 4, 300)
+    rows = (pts[..., 0].int() | (pts[..., 1].int() << 8) | (pts[..., 2].int() << 16))
+    rows = torch.where(valid, rows, torch.full_like(rows, -1)).contiguous()
+    want, _ = TEPS.eps_components_packed(rows, eps2)
+    got, _ = TEPS.eps_components_packed(rows.to(cuda), eps2.to(cuda))
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
