@@ -8,26 +8,46 @@ Phases, in order; any failed check exits non-zero:
      switches, the libdeflate the container loads;
   2. build: the native host runtime (g++) and both CUDA kernels (one nvcc
      per source, started together), with the seconds each took;
-  3. kernel 1 (SLIC assign) against its plain version at main-path shapes
-     (B=8, MP=196,608, K=256 and B=1, MP=221,184, K=64, with 1e6 sentinel
-     centres): ids must be equal
-     (an id may differ only where the two candidates' distances are within
-     one ulp: the plain version emulates the fused multiply-add in float64);
+  3. kernel 1 (SLIC assign) against its plain version at the (B, MP, K) the
+     three paths below launch (the batch path's (8, 221184, 64) first; K = 64
+     throughout) and at a full bucket of the widest K, (8, 196608, 256), which
+     none of them launches; 1e6 sentinel centres; ids must be equal (an id may
+     differ only where the two candidates' distances are within one ulp: the
+     plain version emulates the fused multiply-add in float64);
   4. kernel 2 (eps sweep) against its plain version, and the loop kernel
      against the plain loop and the host union-find, at the bucket shapes
      (B, N) = (64, 1024), (16, 4096), (4, 10240): labels must be equal.  It
      also counts the kernels, copies and synchronisations of one loop call.
      Then the entry the tiers call, `eps_components_packed` (rows of packed
-     colours, -1 where a row has no point), at shapes the 4 encodes of phase 5
-     launch, (B, N) = (7, 9999), (26, 1024), (1, 64), against the plain loop
-     and the host union-find;
-  5. end to end: encode + decode of 4 synthetic 768x512 images (Kodak's
-     shape) through the public `encode`/`decode` on the card, with both
-     kernels' launch counts and launch shapes read around that run; checks
-     shape, PSNR > 28 dB, and agreement with the port's own CPU encode; then
-     the same 4 encodes once more inside a profiler window, for the share of
-     the window in which the card ran nothing;
-  6. one JSON line of kernel measurements, then the card line, then the
+     colours, -1 where a row has no point), at shapes the encodes launch:
+     (B, N) = (7, 9999), (26, 1024), (1, 64) of the one-image path, and the
+     batch paths' tall ones, (48, 9999), (17, 4096), (126, 4096), (245, 1024),
+     against the plain loop and the host union-find;
+     every loop shape is also timed by CUDA events around the pack and loop
+     kernels alone, beside the host-clock time of a whole call of the loop;
+  5. one image at a time: encode + decode of 2 synthetic 768x512 images
+     (Kodak's shape) through the public `encode`/`decode` on the card, with
+     both kernels' launch counts and launch shapes read around that run;
+     checks shape, PSNR > 28 dB, and agreement with the port's own CPU
+     encode; then the same encodes once more inside a profiler window, for
+     the share of the window in which the card ran nothing;
+  6. pairs: on the tall map of 8 such images (seeds 100-107) and their real
+     segment maps, the device pair table against the host runtime: `uniq`,
+     `counts`, the post-repair colors, the painted index map and the refit
+     rows, all exact; sort, compact, paint and refit times by CUDA events;
+  7. batch: `encode_many` of those 8 images at `CodecConfig()` on the card,
+     counts read around it: bytes against the CPU `encode_many` (equal, else
+     segment maps >= 99.5 %, |dPSNR| <= 0.05 dB, |size| <= 1 %), equal with
+     RHCCQ_DEVICE_PAIRS=0, every image above 28 dB, PSNR and SSIM, stage
+     seconds, launch shapes, idle share; the same once at
+     `CodecConfig.low_latency()`;
+  8. stream: `encode_stream` of 3 batches of 8 with workers=2 against three
+     sequential `encode_many` calls, byte for byte, under a deadline (a hang
+     of the cooperative kernel under two threads ends the run non-zero);
+  9. cover: every (B, MP, K) and (B, N) that phases 5, 7 and 8 launched and
+     phases 3 and 4 did not check is checked against the plain version now,
+     so no path runs a kernel at a shape the run has not held;
+ 10. one JSON line of kernel measurements, then the card line, then the
      final {"ok": true, ...} line.
 
 Without CUDA, or without the package beside this file, it exits non-zero
@@ -40,6 +60,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -94,6 +115,22 @@ def time_cuda(fn, reps: int = 20, warmup: int = 2) -> float:
 # ---------------------------------------------------------------------------
 # Kernel checks (shape arguments let a CPU rehearsal run them small).
 # ---------------------------------------------------------------------------
+
+# (B, MP, K) that `slic_assign` is checked at before the paths run: what
+# encode_many launches at CodecConfig() (the first two) and at low_latency(),
+# and the one-image path's (1, 221184, 64).  Phase 9 checks whatever else a
+# path launched, and says which of these none did.  The last is a full SLIC
+# bucket at the widest K the wrapper takes, which no path of this run launches.
+SLIC_PATH_SHAPES = ((8, 221_184, 64), (2, 65_536, 64), (1, 221_184, 64), (4, 81_920, 64),
+                    (2, 200_704, 64), (1, 172_032, 64), (1, 102_400, 64))
+SLIC_WIDEST_SHAPE = (8, 196_608, 256)
+# (B, N) the packed entry of the eps loop is checked at before the paths run:
+# the one-image path's largest and two small ones, then the batch paths' tall ones.
+EPS_PACKED_SHAPES = ((7, 9999), (26, 1024), (1, 64), (48, 9999), (17, 4096), (126, 4096), (245, 1024))
+
+# Every shape a path launched a kernel at (read_counts adds to it).
+launched_shapes = {"slic_assign": set(), "eps_components": set()}
+
 
 def slic_inputs(device, b=8, mp=196_608, k=256, seed=0):
     """Features and centres in SLIC's ranges: Lab plus scaled coordinates;
@@ -293,6 +330,9 @@ def check_eps_sweep(device, shapes=((64, 1024), (16, 4096), (4, 10240)), reps=10
                 lambda: EPS.eps_sweep_ref(pts, lab0, valid_u8, groups, eps2), max(2, reps // 5), 1
             )
             rec["driver_ms"] = median_ms(lambda: EPS.eps_components_rows(pts, valid, groups, eps2))
+            rec["loop_event_ms"] = time_cuda(
+                lambda: EPS.enqueue_components(b, n, device, pts, None, valid_u8, groups, eps2), reps
+            )
             rec["driver_calls"] = count_device_calls(
                 lambda: EPS.eps_components_rows(pts, valid, groups, eps2)
             )
@@ -328,10 +368,11 @@ def packed_eps_inputs(b, n, seed=2):
     return rows, sizes, eps
 
 
-def check_eps_packed(device, shapes=((7, 9999), (26, 1024), (1, 64))):
+def check_eps_packed(device, shapes=EPS_PACKED_SHAPES, count_calls=True):
     """`eps_components_packed`, the entry the tiers call, at shapes the main
-    path launches: the kernel's labels against the plain loop and against
-    the host union-find on the same runs."""
+    paths launch: the kernel's labels against the plain loop and against the
+    host union-find on the same runs.  count_calls: also count one call's
+    kernels, copies and synchronisations from a profiler trace."""
     import numpy as np
     import torch
 
@@ -368,11 +409,17 @@ def check_eps_packed(device, shapes=((7, 9999), (26, 1024), (1, 64))):
                "loop_max_abs_err": float(np.abs(lab_np.astype(np.int64) - ref_np).max())}
         ops = float((sizes.astype(np.float64) ** 2).sum()) * 12.0
         nbytes = b * n * 4 + b * 4 + b * n * 4
-        one, rec["bound_by"] = bound_ms(ops, nbytes)
-        rec["bound_ms"] = sweeps * one
+        # One look at every valid pair: the loop kernel skips rows that have
+        # settled and column tiles too far away, so rounds x one sweep would
+        # be more than it does.
+        rec["bound_ms"], rec["bound_by"] = bound_ms(ops, nbytes)
         if device.type == "cuda":
             rec["driver_ms"] = median_ms(lambda: EPS.eps_components_packed(rows, eps2))
-            rec["driver_calls"] = count_device_calls(lambda: EPS.eps_components_packed(rows, eps2))
+            rec["loop_event_ms"] = time_cuda(
+                lambda: EPS.enqueue_components(b, n, device, None, rows, None, None, eps2), 10
+            )
+            if count_calls:
+                rec["driver_calls"] = count_device_calls(lambda: EPS.eps_components_packed(rows, eps2))
         recs.append(rec)
     return recs
 
@@ -388,7 +435,7 @@ def psnr(a, b) -> float:
     return float("inf") if mse == 0 else 10.0 * np.log10(255.0**2 / mse)
 
 
-def seg_agreement(img, device_a, device_b) -> float:
+def seg_agreement(img, config, device_a, device_b) -> float:
     """Share of pixels whose segment ids agree between two devices' runs of
     the ROI + segment stages (same ids up to the segment numbering)."""
     import numpy as np
@@ -397,8 +444,11 @@ def seg_agreement(img, device_a, device_b) -> float:
     from roibasedimagecompression_torch.models import codec, roi_fused
     from roibasedimagecompression_torch.ops import canny
 
-    config = cfg.CodecConfig()
-    low, high = canny.select_thresholds_pair(img)
+    if config.fast_edges:
+        lows, highs = canny.fast_thresholds_many(img[None], device_a)
+        low, high = float(lows[0]), float(highs[0])
+    else:
+        low, high = canny.select_thresholds_pair(img)
     roi, nonroi = roi_fused.roi_masks_fast(img, config, low, high)
     regions = codec._extract_and_assign(roi, nonroi, cfg.min_region_size(img.size))
     a = codec.build_segment_map(img, *regions, config, device_a)[0]
@@ -406,13 +456,83 @@ def seg_agreement(img, device_a, device_b) -> float:
     return float(np.mean(a == b))
 
 
-def run_end_to_end(device, n_images=4, h=512, w=768, compare_cpu=True):
-    import numpy as np
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0: called just before a path runs."""
+    from roibasedimagecompression_torch.ops.cuda import epscc as EPS
+    from roibasedimagecompression_torch.ops.cuda import slic_assign as SA
+    from roibasedimagecompression_torch.utils import timing
+
+    timing.reset_stages()
+    SA.launches = EPS.launches = EPS.sweep_launches = EPS.rounds = 0
+    SA.launch_shapes.clear()
+    EPS.loop_shapes.clear()
+
+
+def read_counts():
+    """(launch counts, launch-shape histograms) since reset_counts."""
+    from roibasedimagecompression_torch.ops.cuda import epscc as EPS
+    from roibasedimagecompression_torch.ops.cuda import slic_assign as SA
+
+    launched_shapes["slic_assign"].update(SA.launch_shapes)
+    launched_shapes["eps_components"].update(EPS.loop_shapes)
+    launches = {"slic_assign": SA.launches, "eps_components": EPS.launches,
+                "eps_sweep_alone": EPS.sweep_launches, "eps_rounds": EPS.rounds}
+    shapes = {
+        "slic_assign (B, MP, K)": {str(k): v for k, v in sorted(SA.launch_shapes.items())},
+        "eps loop (B, N)": {str(k): v for k, v in sorted(EPS.loop_shapes.items())},
+    }
+    return launches, shapes
+
+
+def compare_with_cpu(results, images, datas, refs, config, device) -> None:
+    """Hold each card encode to the CPU encode of the same image: bytes equal,
+    else segment maps >= 99.5 %, |dPSNR| <= 0.05 dB, |size| <= 1 % (a float
+    argmin may flip at an exact tie)."""
     import torch
 
     import roibasedimagecompression_torch as rtt
-    from roibasedimagecompression_torch.ops.cuda import epscc as EPS
-    from roibasedimagecompression_torch.ops.cuda import slic_assign as SA
+
+    for i, (img, data, ref) in enumerate(zip(images, datas, refs)):
+        r = results[i]
+        r["bytes_equal_cpu"] = data == ref
+        if data != ref:
+            r["seg_agreement_cpu"] = seg_agreement(img, config, device, torch.device("cpu"))
+            r["dpsnr_cpu"] = r["psnr_db"] - psnr(img, rtt.decode(ref))
+            r["dbpp_rel_cpu"] = (len(data) - len(ref)) / len(ref)
+            check(
+                r["seg_agreement_cpu"] >= 0.995 and abs(r["dpsnr_cpu"]) <= 0.05
+                and abs(r["dbpp_rel_cpu"]) <= 0.01,
+                f"image {i}: CUDA encode departs from the CPU encode: {r}",
+            )
+
+
+def decode_and_score(images, datas, device, with_ssim=False) -> list:
+    import torch
+
+    import roibasedimagecompression_torch as rtt
+    from roibasedimagecompression_torch.ops import metrics
+
+    results = []
+    for img, data in zip(images, datas):
+        out = rtt.decode(data)
+        check(out.shape == img.shape, f"decoded shape {out.shape} != {img.shape}")
+        p = psnr(img, out)
+        check(p > 28.0, f"PSNR {p:.2f} dB is below the 28 dB floor")
+        r = {"psnr_db": p, "bpp": len(data) * 8 / (img.shape[0] * img.shape[1])}
+        if with_ssim:
+            r["ssim"] = float(metrics.ssim(torch.from_numpy(img).to(device),
+                                           torch.from_numpy(out).to(device)))
+            check(0.0 < r["ssim"] <= 1.0, f"SSIM {r['ssim']} is out of range")
+        results.append(r)
+    return results
+
+
+def run_end_to_end(device, n_images=2, h=512, w=768, compare_cpu=True):
+    """The one-image path: `encode` of each image in turn."""
+    import torch
+
+    import roibasedimagecompression_torch as rtt
+    from roibasedimagecompression_torch import config as cfg
     from roibasedimagecompression_torch.utils import timing
     from roibasedimagecompression_torch.utils.synthetic import synthetic_image
 
@@ -420,47 +540,164 @@ def run_end_to_end(device, n_images=4, h=512, w=768, compare_cpu=True):
     rtt.encode(images[0], device=device)  # warm-up: first-use builds, allocator
     if device.type == "cuda":
         torch.cuda.synchronize()
-    timing.reset_stages()
-    SA.launches = EPS.launches = EPS.sweep_launches = EPS.rounds = 0
-    SA.launch_shapes.clear()
-    EPS.loop_shapes.clear()
+    reset_counts()
     datas, secs = [], []
     for img in images:
         t0 = time.perf_counter()
         datas.append(rtt.encode(img, device=device))
         secs.append(time.perf_counter() - t0)
-    launches = {"slic_assign": SA.launches, "eps_components": EPS.launches,
-                "eps_sweep_alone": EPS.sweep_launches, "eps_rounds": EPS.rounds}
-    shapes = {
-        "slic_assign (B, MP, K)": {str(k): v for k, v in sorted(SA.launch_shapes.items())},
-        "eps loop (B, N)": {str(k): v for k, v in sorted(EPS.loop_shapes.items())},
-    }
+    launches, shapes = read_counts()
     stages = timing.stage_report()
-    results = []
-    for img, data, s in zip(images, datas, secs):
-        out = rtt.decode(data)
-        check(out.shape == img.shape, f"decoded shape {out.shape} != {img.shape}")
-        p = psnr(img, out)
-        check(p > 28.0, f"PSNR {p:.2f} dB is below the 28 dB floor")
-        results.append({"seconds": s, "psnr_db": p, "bpp": len(data) * 8 / (h * w)})
+    results = decode_and_score(images, datas, device)
+    for r, s in zip(results, secs):
+        r["seconds"] = s
     if compare_cpu and device.type == "cuda":
-        cpu = torch.device("cpu")
-        for i, (img, data) in enumerate(zip(images, datas)):
-            ref = rtt.encode(img, device=cpu)
-            r = results[i]
-            r["bytes_equal_cpu"] = data == ref
-            if data != ref:
-                r["seg_agreement_cpu"] = seg_agreement(img, device, cpu)
-                r["dpsnr_cpu"] = r["psnr_db"] - psnr(img, rtt.decode(ref))
-                r["dbpp_rel_cpu"] = (len(data) - len(ref)) / len(ref)
-                check(
-                    r["seg_agreement_cpu"] >= 0.995 and abs(r["dpsnr_cpu"]) <= 0.05
-                    and abs(r["dbpp_rel_cpu"]) <= 0.01,
-                    f"image {i}: CUDA encode departs from the CPU encode: {r}",
-                )
+        refs = [rtt.encode(img, device="cpu") for img in images]
+        compare_with_cpu(results, images, datas, refs, cfg.CodecConfig(), device)
     idle = device_idle_share(lambda: [rtt.encode(img, device=device) for img in images]) \
         if device.type == "cuda" else None
     return results, launches, shapes, stages, idle
+
+
+def check_pairs(device, images):
+    """The device pair table on the tall map of `images` and their real
+    segment maps, against the host runtime's pack, repair, paint and a host
+    bincount: all exact.  Returns sizes and the stage times by CUDA events."""
+    import numpy as np
+    import torch
+
+    from roibasedimagecompression_torch import config as cfg
+    from roibasedimagecompression_torch import native
+    from roibasedimagecompression_torch.ops import pairs as PAIRS
+    from roibasedimagecompression_torch.parallel import stream as STREAM
+
+    batch = np.stack(images)
+    b, h, w, _ = batch.shape
+    tall_seg, _, _, _, dbatch = STREAM._segment_stack(batch, cfg.CodecConfig(), device)
+    check(dbatch is not None, "the segment stage left no batch on the device")
+    tall_img = batch.reshape(b * h, w, 3)
+    table = PAIRS.DevicePairTable(tall_seg, images_dev=dbatch.img)
+    t0 = time.perf_counter()
+    uniq, inverse, counts = native.pack_pairs(tall_img, tall_seg)
+    host_pack_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(table.uniq, uniq), "DevicePairTable.uniq differs from native.pack_pairs")
+    check(np.array_equal(table.counts, counts), "DevicePairTable.counts differs from native.pack_pairs")
+    check(table.n_pairs == len(uniq) > 0, "the smoke's images gave no pairs")
+    u, c = uniq.copy(), counts.copy()
+    m, remap = native.black_repair_pairs(u, c, None, return_remap=True)
+    u2, c2 = uniq.copy(), counts.copy()
+    check(native.black_repair_pairs(u2, c2, inverse) == m, "the two black repairs disagree")
+    host_colors = native.split_pair_uniq(u[:m])[2].astype(np.uint8)
+    check(np.array_equal(table.colors_dev[:m].cpu().numpy(), host_colors),
+          "colors_dev differs from the host post-repair colors")
+    mask = tall_seg > 0
+    rng = np.random.default_rng(0)
+    rec = {"n_pix": int(tall_seg.size), "n_masked": int(mask.sum()), "n_pairs": int(table.n_pairs),
+           "n_pairs_repaired": int(m), "host_pack_ms": host_pack_ms}
+    for n_idx, k_pad in ((200, 256), (3000, 4096)):  # uint8 and uint16 index maps
+        idx_of_pair = rng.integers(0, n_idx, m).astype(np.int32)
+        flat, sums = table.paint(idx_of_pair, remap, refit_bins=(b, h * w, k_pad))
+        host_map = np.zeros((b * h, w), flat.dtype)
+        native.paint_masked_indices(idx_of_pair, inverse, mask, host_map)
+        check(np.array_equal(flat, host_map.reshape(-1)),
+              f"paint() differs from the host paint_masked_indices map ({n_idx} indices)")
+        bins = ((np.arange(b * h * w) // (h * w)) * k_pad + host_map.reshape(-1))[mask.reshape(-1)]
+        pix = tall_img.reshape(-1, 3)[mask.reshape(-1)].astype(np.float64)
+        for ch, col in enumerate([np.ones(len(pix)), pix[:, 0], pix[:, 1], pix[:, 2]]):
+            host = np.bincount(bins, weights=col, minlength=b * k_pad).astype(np.int64)
+            check(np.array_equal(sums[:, ch], host), f"refit rows differ from a host bincount ({n_idx} indices)")
+    if device.type == "cuda":
+        seg_flat = torch.from_numpy(tall_seg.reshape(-1)).to(device)
+        rgb_flat = dbatch.img.reshape(-1, 3)
+        key_s, perm, new, pair_id, n_pairs, n_valid = PAIRS._pair_sort(seg_flat, rgb_flat)
+        cap = PAIRS._pow2(n_pairs, minimum=4096)
+        idx_dev = torch.from_numpy(idx_of_pair[remap]).to(device)
+        rec["sort_ms"] = time_cuda(lambda: PAIRS._pair_sort(seg_flat, rgb_flat), 5, 1)
+        rec["compact_ms"] = time_cuda(
+            lambda: PAIRS._pair_compact(key_s, new, pair_id, n_valid, n_pairs, cap=cap), 5, 1)
+        rec["paint_ms"] = time_cuda(
+            lambda: PAIRS._paint_indices(perm, pair_id, n_valid, idx_dev, torch.int32), 5, 1)
+        rec["refit_ms"] = time_cuda(
+            lambda: PAIRS._refit_sums(perm, pair_id, key_s, n_valid, idx_dev, k_pad=k_pad, hw=h * w, b=b), 5, 1)
+    return rec
+
+
+def run_batch(device, images, config, compare_cpu=True, profile=True):
+    """The batch path: one warm `encode_many`, the counts read around it."""
+    from roibasedimagecompression_torch.parallel import stream as STREAM
+    from roibasedimagecompression_torch.utils import timing
+
+    STREAM.encode_many(images, config, device)  # warm-up: this batch's shapes
+    reset_counts()
+    t0 = time.perf_counter()
+    datas = STREAM.encode_many(images, config, device)
+    seconds = time.perf_counter() - t0
+    launches, shapes = read_counts()
+    stages = timing.stage_report()
+    results = decode_and_score(images, datas, device, with_ssim=True)
+    os.environ["RHCCQ_DEVICE_PAIRS"] = "0"
+    try:
+        host_pack = STREAM.encode_many(images, config, device)
+    finally:
+        del os.environ["RHCCQ_DEVICE_PAIRS"]
+    check(host_pack == datas, "encode_many with RHCCQ_DEVICE_PAIRS=0 wrote other bytes")
+    if compare_cpu and device.type == "cuda":
+        refs = STREAM.encode_many(images, config, "cpu")
+        compare_with_cpu(results, images, datas, refs, config, device)
+    idle = device_idle_share(lambda: STREAM.encode_many(images, config, device)) \
+        if profile and device.type == "cuda" else None
+    return {"seconds": seconds, "images_per_second": len(images) / seconds, "results": results,
+            "launches": launches, "shapes": shapes, "stages": stages, "idle": idle, "datas": datas}
+
+
+def run_with_deadline(fn, seconds: float, what: str):
+    """Run `fn` on a thread and return its result; if it has not ended after
+    `seconds` (two cooperative launches waiting on each other would never
+    end), say so and end the process: a thread stuck inside a CUDA call cannot
+    be stopped from here."""
+    box = {}
+
+    def target():
+        try:
+            box["value"] = fn()
+        except BaseException as exc:  # re-raised on the caller's thread
+            box["error"] = exc
+
+    thread = threading.Thread(target=target, daemon=True)
+    thread.start()
+    thread.join(seconds)
+    if thread.is_alive():
+        print(f"chip_smoke: FAILED: {what} did not end within {seconds:.0f} s", file=sys.stderr, flush=True)
+        os._exit(1)
+    if "error" in box:
+        raise box["error"]
+    return box["value"]
+
+
+def run_stream(device, batches, first_batch_datas, deadline=300.0, profile=True):
+    """`encode_stream` with two workers against sequential `encode_many`."""
+    from roibasedimagecompression_torch.parallel import stream as STREAM
+
+    t0 = time.perf_counter()
+    seq = [STREAM.encode_many(bt, None, device) for bt in batches]
+    seq_seconds = time.perf_counter() - t0
+    check(seq[0] == first_batch_datas, "a second encode_many of the same batch wrote other bytes")
+    reset_counts()
+    t0 = time.perf_counter()
+    got = run_with_deadline(lambda: STREAM.encode_stream(batches, None, 2, device), deadline,
+                            "encode_stream(workers=2)")
+    seconds = time.perf_counter() - t0
+    launches, shapes = read_counts()
+    check(got == seq, "encode_stream(workers=2) differs from sequential encode_many")
+    n = sum(len(bt) for bt in batches)
+    idle = None
+    if profile and device.type == "cuda":
+        idle = run_with_deadline(
+            lambda: device_idle_share(lambda: STREAM.encode_stream(batches, None, 2, device)),
+            deadline, "encode_stream(workers=2) under the profiler")
+    return {"seconds": seconds, "images_per_second": n / seconds, "sequential_seconds": seq_seconds,
+            "sequential_images_per_second": n / seq_seconds, "launches": launches, "shapes": shapes,
+            "idle": idle}
 
 
 def device_idle_share(fn) -> dict:
@@ -532,10 +769,8 @@ def main() -> int:
                 print(f"[build]   {line.strip()}")
 
     # -- 3. kernel 1 -------------------------------------------------------------
-    # The batch shape of a full SLIC bucket, and the shape the 4 encodes of
-    # phase 5 launch most (one 768x512 region, 64 centres).
-    k1, k1_single = check_slic_assign(device), check_slic_assign(device, b=1, mp=221_184, k=64)
-    for r in (k1, k1_single):
+    k1 = [check_slic_assign(device, *shape) for shape in SLIC_PATH_SHAPES + (SLIC_WIDEST_SHAPE,)]
+    for r in k1:
         print(f"[slic_assign] B,MP,K={r['shape']}: ids equal; kernel {r['ms']:.3f} ms, "
               f"plain {r['plain_ms']:.3f} ms, cdist+argmin {r['library_ms']:.3f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
@@ -546,24 +781,31 @@ def main() -> int:
         print(f"[eps_sweep] B,N={r['shape']}: labels equal (kernel, plain, union-find); "
               f"{r['ms']:.3f} ms/sweep, plain {r['plain_ms']:.3f} ms/sweep, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
-    for r in k2 + k2_packed:
-        calls = r["driver_calls"]
+
+    def report_loop(r):
+        calls = r.get("driver_calls")
+        counted = "" if calls is None else (
+            f"; one call = {len(calls['kernels'])} kernels {calls['kernels']}, "
+            f"{calls['copies']} copies/memsets, {calls['syncs']} host synchronisations")
         print(f"[eps_loop] {r.get('entry', 'points')} B,N={r['shape']}: {r['sweeps']} rounds on the card "
               f"(plain loop {r['plain_sweeps']}, {r['plain_driver_ms']:.1f} ms), "
-              f"driver {r['driver_ms']:.3f} ms/call; one call = "
-              f"{len(calls['kernels'])} kernels {calls['kernels']}, {calls['copies']} copies/memsets, "
-              f"{calls['syncs']} host synchronisations [{card}]")
-        check(len(calls["kernels"]) <= 4 and calls["syncs"] <= 2,
+              f"whole call {r['driver_ms']:.3f} ms by the host clock (median of 5), "
+              f"pack + loop kernels {r['loop_event_ms']:.3f} ms by CUDA events, "
+              f"bound {r['bound_ms']:.4f} ms (every valid pair once){counted} [{card}]")
+        check(calls is None or (1 <= len(calls["kernels"]) <= 4 and calls["syncs"] <= 2),
               f"the eps loop at {r['shape']} ran {calls} for {r['sweeps']} rounds: it is not on the card")
 
-    # -- 5. end to end ------------------------------------------------------------
-    results, launches, shapes, stages, idle = run_end_to_end(device)
+    for r in k2 + k2_packed:
+        report_loop(r)
+
+    # -- 5. one image at a time ---------------------------------------------------
+    results, launches_one, shapes, stages, idle = run_end_to_end(device)
     for name in ("slic_assign", "eps_components", "eps_rounds"):
-        check(launches[name] > 0, f"the main path launched {name} no time")
-    print(f"[e2e] launches over 4 encodes: {launches}")
+        check(launches_one[name] > 0, f"the one-image path launched {name} no time")
+    print(f"[e2e] launches over {len(results)} encodes: {launches_one}")
     for name, hist in shapes.items():
         print(f"[e2e] launch shapes, {name}: {json.dumps(hist)}")
-    print(f"[e2e] profiler window over the 4 warm encodes: {json.dumps(idle)} [{card}]")
+    print(f"[e2e] profiler window over the {len(results)} warm encodes: {json.dumps(idle)} [{card}]")
     for i, r in enumerate(results):
         print(f"[e2e] image {i}: {json.dumps(r)} [{card}]")
     mean_s = sum(r["seconds"] for r in results) / len(results)
@@ -571,43 +813,128 @@ def main() -> int:
     for name, st in stages.items():
         print(f"[e2e] stage {name}: {st['seconds']:.3f} s over {st['calls']} calls [{card}]")
 
-    # -- 6. kernels line -------------------------------------------------------------
-    big, big_packed = k2[-1], k2_packed[0]
+    # -- 6. pairs -------------------------------------------------------------------
+    from roibasedimagecompression_torch import config as cfg
+    from roibasedimagecompression_torch.utils.synthetic import synthetic_image
+
+    batches = [[synthetic_image(100 + 8 * k + i, 512, 768) for i in range(8)] for k in range(3)]
+    pr = check_pairs(device, batches[0])
+    print(f"[pairs] 8 x 512 x 768: uniq, counts, post-repair colors, painted map (uint8 and uint16) and "
+          f"refit rows equal the host runtime's; {pr['n_pix']} pixels, {pr['n_masked']} in segments, "
+          f"{pr['n_pairs']} pairs ({pr['n_pairs_repaired']} after the black repair)")
+    print(f"[pairs] by CUDA events: sort {pr['sort_ms']:.3f} ms, compact {pr['compact_ms']:.3f} ms, "
+          f"paint {pr['paint_ms']:.3f} ms, refit sums {pr['refit_ms']:.3f} ms; "
+          f"host pack_pairs {pr['host_pack_ms']:.1f} ms (host clock) [{card}]")
+
+    # -- 7. batch ---------------------------------------------------------------------
+    runs = {}
+    for label, config in (("default", cfg.CodecConfig()), ("low_latency", cfg.CodecConfig.low_latency())):
+        br = runs[label] = run_batch(device, batches[0], config, profile=label == "default")
+        for name in ("slic_assign", "eps_components", "eps_rounds"):
+            check(br["launches"][name] > 0, f"the batch path ({label}) launched {name} no time")
+        print(f"[batch {label}] encode_many of 8 x 768x512: {br['seconds']:.3f} s warm, "
+              f"{br['images_per_second']:.3f} images/s; bytes equal with RHCCQ_DEVICE_PAIRS=0 [{card}]")
+        print(f"[batch {label}] launches: {br['launches']}")
+        for name, hist in br["shapes"].items():
+            print(f"[batch {label}] launch shapes, {name}: {json.dumps(hist)}")
+        for i, r in enumerate(br["results"]):
+            print(f"[batch {label}] image {i}: {json.dumps(r)}")
+        for name, st in br["stages"].items():
+            print(f"[batch {label}] stage {name}: {st['seconds']:.3f} s over {st['calls']} calls [{card}]")
+        if br["idle"] is not None:
+            print(f"[batch {label}] profiler window over one warm encode_many: {json.dumps(br['idle'])} [{card}]")
+    launches_batch = runs["default"]["launches"]
+
+    # -- 8. stream ------------------------------------------------------------------
+    sr = run_stream(device, batches, runs["default"]["datas"])
+    for name in ("slic_assign", "eps_components", "eps_rounds"):
+        check(sr["launches"][name] > 0, f"the stream path launched {name} no time")
+    print(f"[stream] encode_stream of 3 batches of 8, workers=2: equal to sequential encode_many byte "
+          f"for byte; {sr['seconds']:.3f} s, {sr['images_per_second']:.3f} images/s "
+          f"(sequential: {sr['sequential_seconds']:.3f} s, {sr['sequential_images_per_second']:.3f} images/s) [{card}]")
+    print(f"[stream] launches: {sr['launches']}")
+    for name, hist in sr["shapes"].items():
+        print(f"[stream] launch shapes, {name}: {json.dumps(hist)}")
+    print(f"[stream] profiler window over one encode_stream: {json.dumps(sr['idle'])} [{card}]")
+
+    # -- 9. cover -------------------------------------------------------------------
+    # Whatever shape a path launched a kernel at, beyond those of phases 3 and
+    # 4, is held against the plain version here.
+    more = sorted(launched_shapes["slic_assign"] - {tuple(r["shape"]) for r in k1})
+    k1 += [check_slic_assign(device, *shape) for shape in more]
+    more_eps = sorted(launched_shapes["eps_components"] - {tuple(r["shape"]) for r in k2_packed})
+    for r in check_eps_packed(device, more_eps, count_calls=False):  # phase 4 counted one call's kernels
+        report_loop(r)
+        k2_packed.append(r)
+    for r in k1:
+        r["on_path"] = tuple(r["shape"]) in launched_shapes["slic_assign"]
+    for r in k2_packed:
+        r["on_path"] = tuple(r["shape"]) in launched_shapes["eps_components"]
+    print(f"[cover] slic_assign also checked at {more}, the packed eps loop at {more_eps}: every "
+          f"shape the three paths launched ({len(launched_shapes['slic_assign'])} and "
+          f"{len(launched_shapes['eps_components'])}) is held against the plain version; checked "
+          f"but launched by no path: slic_assign {[r['shape'] for r in k1 if not r['on_path']]}, "
+          f"packed eps loop {[r['shape'] for r in k2_packed if not r['on_path']]}")
+
+    # -- 10. kernels line ------------------------------------------------------------
+    # `launches` count both main paths, each read around its own run from 0:
+    # the one-image encodes of phase 5 plus the warm encode_many at
+    # CodecConfig() of phase 7; the stream's are beside them.
+    def launches_of(name):
+        return {"launches": launches_one[name] + launches_batch[name],
+                "launches_one_image": launches_one[name], "launches_batch": launches_batch[name],
+                "launches_stream": sr["launches"][name]}
+
+    # The headline numbers of each entry are those of the largest shape a path
+    # launched it at (by pixels, B * MP, and by pairs, B * N * N): (8, 221184,
+    # 64) and (48, 9999) on the smoke's images; `per_shape` has every shape
+    # checked.
+    big = k2[-1]
+    big_slic = max((r for r in k1 if r["on_path"]), key=lambda r: r["shape"][0] * r["shape"][1])
+    big_packed = max((r for r in k2_packed if r["on_path"]),
+                     key=lambda r: r["shape"][0] * r["shape"][1] ** 2)
     kernels = [
-        {k: k1[k] for k in ("name", "route", "source", "replaces")}
-        | {"launches": launches["slic_assign"], "max_abs_err": k1["max_abs_err"],
-           "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-           "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
-           "per_shape": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms")}
-                         for r in (k1, k1_single)]},
+        {k: big_slic[k] for k in ("name", "route", "source", "replaces")}
+        | launches_of("slic_assign")
+        | {"max_abs_err": max(r["max_abs_err"] for r in k1), "shape": big_slic["shape"],
+           "ms": big_slic["ms"], "plain_ms": big_slic["plain_ms"], "bound_ms": big_slic["bound_ms"],
+           "bound_by": big_slic["bound_by"], "library_ms": big_slic["library_ms"],
+           "per_shape": [{k: r[k] for k in ("shape", "on_path", "ms", "plain_ms", "bound_ms", "library_ms")}
+                         for r in k1]},
         {"name": "eps_sweep", "route": "cuda",
          "source": "roibasedimagecompression_torch/csrc/epscc.cu",
-         "replaces": "roibasedimagecompression_tpu/ops/pallas/epscc.py:33",
-         # On the main path the sweep's code runs inside the loop kernel
-         # (eps_components_kernel), so `launches` are that kernel's, counted
-         # beside its launch; the sweep kernel alone (eps_sweep_kernel, which
-         # `ms` times) is launched by no encode.
-         "launches": launches["eps_components"], "launches_alone": launches["eps_sweep_alone"],
-         "max_abs_err": max(r["max_abs_err"] for r in k2),
-         "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
-         "bound_by": big["bound_by"], "library_ms": None,
-         "per_shape": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms")} for r in k2]},
+         "replaces": "roibasedimagecompression_tpu/ops/pallas/epscc.py:33"}
+        # On the main paths the sweep's code runs inside the loop kernel
+        # (eps_components_kernel), so `launches` are that kernel's, counted
+        # beside its launch; the sweep kernel alone (eps_sweep_kernel, which
+        # `ms` times) is launched by no encode.
+        | launches_of("eps_components")
+        | {"launches_alone": launches_one["eps_sweep_alone"] + launches_batch["eps_sweep_alone"],
+           "max_abs_err": max(r["max_abs_err"] for r in k2),
+           "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+           "bound_by": big["bound_by"], "library_ms": None,
+           "per_shape": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms")} for r in k2]},
         {"name": "eps_components", "route": "cuda",
          "source": "roibasedimagecompression_torch/csrc/epscc.cu",
-         "replaces": "roibasedimagecompression_tpu/ops/pallas/epscc.py:97",
-         "launches": launches["eps_components"], "rounds": launches["eps_rounds"],
-         "max_abs_err": max(r["loop_max_abs_err"] for r in k2 + k2_packed),
-         # One call of the driver (pack, loop kernel, read-back) through the
-         # entry and at the largest shape the encodes use; its bound is this
-         # call's count of rounds times one sweep's bound.
-         "ms": big_packed["driver_ms"], "plain_ms": big_packed["plain_driver_ms"],
-         "bound_ms": big_packed["bound_ms"], "bound_by": big_packed["bound_by"],
-         "library_ms": None,
-         "per_shape": [{"shape": r["shape"], "entry": "points", "sweeps": r["sweeps"],
-                        "driver_ms": r["driver_ms"], "plain_driver_ms": r["plain_driver_ms"],
-                        "bound_ms": r["sweeps"] * r["bound_ms"]} for r in k2]
-                      + [{k: r[k] for k in ("shape", "entry", "sweeps", "components", "driver_ms",
-                                            "plain_driver_ms", "bound_ms")} for r in k2_packed]},
+         "replaces": "roibasedimagecompression_tpu/ops/pallas/epscc.py:97"}
+        | launches_of("eps_components")
+        | {"rounds": launches_one["eps_rounds"] + launches_batch["eps_rounds"],
+           "max_abs_err": max(r["loop_max_abs_err"] for r in k2 + k2_packed),
+           # One whole call (pack, loop kernel, read-back) through the packed
+           # entry at the largest shape a path launched; its bound is one
+           # sweep's: every valid pair looked at once.  `loop_event_ms` is the
+           # pack and loop kernels alone, by CUDA events.
+           "shape": big_packed["shape"],
+           "ms": big_packed["driver_ms"], "plain_ms": big_packed["plain_driver_ms"],
+           "bound_ms": big_packed["bound_ms"], "bound_by": big_packed["bound_by"],
+           "library_ms": None, "loop_event_ms": big_packed["loop_event_ms"],
+           "per_shape": [{"shape": r["shape"], "entry": "points", "sweeps": r["sweeps"],
+                          "driver_ms": r["driver_ms"], "loop_event_ms": r["loop_event_ms"],
+                          "plain_driver_ms": r["plain_driver_ms"],
+                          "bound_ms": r["bound_ms"]} for r in k2]
+                        + [{k: r[k] for k in ("shape", "entry", "on_path", "sweeps", "components", "driver_ms",
+                                              "loop_event_ms", "plain_driver_ms", "bound_ms")}
+                           for r in k2_packed]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

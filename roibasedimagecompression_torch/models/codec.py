@@ -29,7 +29,8 @@ def _extract_and_assign(roi_mask, nonroi_mask, min_size):
 
 
 def build_segment_maps_many(images: list, regions_per_image: list,
-                            config: cfg.CodecConfig, device) -> list:
+                            config: cfg.CodecConfig, device,
+                            return_dbatch: bool = False):
     """Rasterize per-region SLIC segments into global (h, w) id maps for a
     batch of images.
 
@@ -38,6 +39,9 @@ def build_segment_maps_many(images: list, regions_per_image: list,
     buffer-zone overlaps.  All regions of all images pool into the same
     split-score and SLIC buckets; same-shape images go to the device once,
     with one region-id raster per kind, and crops are sliced there.
+
+    With return_dbatch the result is (list, DeviceBatch or None): the batch
+    on the device, whose pixels the tier-1 device pair table reads again.
     """
     flat_regions = []  # (image_idx, region), nonroi first then roi per image
     for k, (roi_regions, nonroi_regions) in enumerate(regions_per_image):
@@ -101,6 +105,8 @@ def build_segment_maps_many(images: list, regions_per_image: list,
         results.append(
             (seg_map, np.asarray(qualities, np.float64), np.asarray(groups, np.int32))
         )
+    if return_dbatch:
+        return results, dbatch
     return results
 
 
@@ -111,6 +117,33 @@ def build_segment_map(image_rgb, roi_regions, nonroi_regions, config, device):
     )[0]
 
 
+def _pow2_refit(n: int, minimum: int = 64) -> int:
+    """Power-of-two bucket for the refit table's per-image stride."""
+    p = minimum
+    while p < n:
+        p *= 2
+    return p
+
+
+def _apply_refit_sums(palette: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """Finish the device refit: rows = (len(palette), 4) int32
+    [count, sum_r, sum_g, sum_b]; the frozen-black law and the float64
+    round(sums / count) of refine.refit_pixels, so the result equals the host
+    bincount path."""
+    pal = np.asarray(palette, np.uint8)
+    if len(pal) == 0:
+        return pal.copy()
+    frozen = (pal == 0).all(axis=1)
+    if bool(frozen.all()):
+        return pal.copy()
+    cnt = rows[:, 0].astype(np.int64)
+    sums = rows[:, 1:4].astype(np.float64)
+    upd = (~frozen) & (cnt > 0)
+    out = pal.copy()
+    out[upd] = np.round(sums[upd] / cnt[upd, None]).astype(np.uint8)
+    return out
+
+
 def tiers23_palette_indices(
     table: dict,
     seg_group: np.ndarray,
@@ -119,6 +152,7 @@ def tiers23_palette_indices(
     shape: tuple,
     config: cfg.CodecConfig,
     device,
+    refit_originals: np.ndarray | None = None,
 ) -> list:
     """Tiers 2/3 + final palette, composed on the tier-1 CLUSTER table.
 
@@ -127,6 +161,13 @@ def tiers23_palette_indices(
     the unique (image, tier-2 color) set, and the final palette the unique
     tier-3 colors: tables of cluster-count length.  Pixels are touched once,
     in the final palette-index paint.
+
+    refit_originals: optional (b, h, w, 3) uint8 original images.  When given
+    and the config enables the zero-rate palette refit, the returned palettes
+    are already refitted (refine.refit_pixels semantics, bit-identical): the
+    device pair table accumulates the count and RGB-sum table where the
+    pixels are, the host-paint branch calls refit_pixels.  A caller that
+    passes it skips its own maybe_refit.
 
     Returns a list of (palette (m, 3) uint8, indices (h, w) minimal unsigned
     dtype) per image of the stacked table.
@@ -227,15 +268,46 @@ def tiers23_palette_indices(
         # ---- the one pixel pass: paint palette indices ----
         idx_of_pair = idx_of_cluster[cop].astype(np.int32)
         inverse = table["inverse"]
+        do_refit = refit_originals is not None and RF.effective_refit(config)
+        out = []
+        if inverse is None:
+            # Device pair table: the pixel -> pair mapping lives on the
+            # device; one gather and scatter paints the final indices.
+            refit_bins = None
+            # int32 sums stay exact only while 255 * hw < 2^31; larger images
+            # take the host refit.
+            if do_refit and 255 * h * w < 2**31:
+                k_pad = _pow2_refit(max(len(p) for p in results))
+                refit_bins = (b, h * w, k_pad)
+            painted = table["device_pairs"].paint(
+                idx_of_pair, table["repair_remap"], refit_bins=refit_bins
+            )
+            if refit_bins is not None:
+                flat, sums = painted
+                for i in range(b):
+                    results[i] = _apply_refit_sums(
+                        results[i], sums[i * k_pad : i * k_pad + len(results[i])]
+                    )
+            else:
+                flat = painted
+            for i in range(b):
+                pal = results[i]
+                idx_map = flat[i * h * w : (i + 1) * h * w].reshape(h, w)
+                if refit_bins is None and do_refit:
+                    pal = RF.refit_pixels(refit_originals[i], pal, idx_map)
+                dt = C.min_index_dtype(max(len(pal) - 1, 0))
+                out.append((pal, idx_map.astype(dt, copy=False)))
+            return out
         n_masked = (h * w) - bg_counts
         offs = np.concatenate([[0], np.cumsum(n_masked)])
-        out = []
         for i in range(b):
             pal = results[i]
             idx_map = np.zeros((h, w), C.min_index_dtype(max(len(pal) - 1, 0)))
             native.paint_masked_indices(
                 idx_of_pair, inverse[offs[i] : offs[i + 1]], mask[i * h : (i + 1) * h], idx_map
             )
+            if do_refit:
+                pal = RF.refit_pixels(refit_originals[i], pal, idx_map)
             out.append((pal, idx_map))
     return out
 
@@ -255,7 +327,6 @@ def _coerce_rgb(image: np.ndarray) -> np.ndarray:
 
 
 _UNPORTED = {
-    "fast_edges": "ROADMAP A9 (fast_edges / low_latency)",
     "region_fusion": "ROADMAP A12 (region fusion)",
     "fill_black_holes": "ROADMAP A12 (fill_black_holes and the canvas tiers path)",
     "weighted_split": "ROADMAP A12 (weighted_split)",
@@ -293,7 +364,12 @@ def encode_batched(image_rgb: np.ndarray, config: cfg.CodecConfig, device) -> by
             ]
             nonroi_regions = []
         else:
-            low, high = CANNY.select_thresholds_pair(image_rgb)
+            if config.fast_edges:
+                # The same reduced-candidate law as the batch frontend.
+                lows, highs = CANNY.fast_thresholds_many(image_rgb[None], device)
+                low, high = float(lows[0]), float(highs[0])
+            else:
+                low, high = CANNY.select_thresholds_pair(image_rgb)
             roi_mask, nonroi_mask = ROI.roi_masks_fast(image_rgb, config, low, high)
             roi_regions, nonroi_regions = _extract_and_assign(roi_mask, nonroi_mask, min_size)
 

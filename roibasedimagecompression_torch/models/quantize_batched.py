@@ -156,25 +156,44 @@ def tier1_table(
     weighted: bool = True,
     split_method: str = "kmeans",
     split_margin: float = 1.0,
+    device_pairs=None,
 ) -> dict | None:
     """Tier-1 clustering as a pair/cluster TABLE (no canvas paint).
+
+    With `device_pairs` (an ops.pairs.DevicePairTable built from the same
+    seg_map), the pair table comes from the device sort instead of the host
+    radix pack, the black repair runs on the table only, and `inverse` stays
+    None: the per-pixel state lives on the device and the final paint is a
+    gather there (codec.tiers23_palette_indices).
 
     Returns None when no pixel has a segment; otherwise a dict:
       seg_of_pair     (n_pairs,) int32   segment id per unique pair
       cluster_of_pair (n_pairs,) int64   dense tier-1 cluster id per pair
       cluster_colors  (n_clusters, 3) u8 truncated cluster means
-      inverse         (n_masked,) int64  pair row per masked pixel (row-major)
+      inverse         (n_masked,) int64  pair row per masked pixel (row-major),
+                                         None with device_pairs
       mask            (h, w) bool        seg_map > 0
       pair_weights    (n_pairs,) f64     pixel multiplicity per pair
+      device_pairs                       the argument
+      repair_remap    (n_pre,) int64     pre-repair pair row -> repaired row,
+                                         None without device_pairs
     """
     with stage_timer("t1.pairs"):
         mask = seg_map > 0
-        uniq, inverse, counts = native.pack_pairs(image_rgb, seg_map)
-        if len(uniq) == 0:
-            return None
         # Black repair in C++: black pairs take their segment's darkest
         # non-black color; the pair table compacts in place.
-        m = native.black_repair_pairs(uniq, counts, inverse)
+        repair_remap = None
+        if device_pairs is not None:
+            uniq, counts = device_pairs.uniq.copy(), device_pairs.counts.copy()
+            inverse = None
+            if len(uniq) == 0:
+                return None
+            m, repair_remap = native.black_repair_pairs(uniq, counts, None, return_remap=True)
+        else:
+            uniq, inverse, counts = native.pack_pairs(image_rgb, seg_map)
+            if len(uniq) == 0:
+                return None
+            m = native.black_repair_pairs(uniq, counts, inverse)
         counts = counts[:m]
         seg_of_pair, color_of_pair, colors = native.split_pair_uniq(uniq[:m])
     n_pairs = len(seg_of_pair)
@@ -231,6 +250,7 @@ def tier1_table(
         cluster_of_pair, next_cluster = _split_oversized_batched(
             colors, cluster_of_pair, pair_max_colors, next_cluster, seed, device,
             method=split_method, margin=split_margin,
+            colors_dev_pre=None if device_pairs is None else device_pairs.colors_dev,
         )
 
     with stage_timer("t1.means"):
@@ -245,6 +265,8 @@ def tier1_table(
         "inverse": inverse,
         "mask": mask,
         "pair_weights": pair_weights,
+        "device_pairs": device_pairs,
+        "repair_remap": repair_remap,
     }
 
 
@@ -383,25 +405,25 @@ def _pca_chunk_ranks(colors, order, starts, sizes, oversized):
     return pos, flat_row, rank, n
 
 
-def _kmeans_bucket(colors, order, starts_b, sizes_b, ks_b, cap, k_max, seed, device):
+def _kmeans_bucket(colors_dev, order_dev, starts_b, sizes_b, ks_b, cap, k_max, seed):
     """Device k-means over runs of the ORDER permutation: row r's points are
-    colors[order[starts_b[r] + j]], j < sizes_b[r].  Returns (B, cap) labels."""
-    b = len(starts_b)
-    flat_pos, flat_row, within = native.flat_run_positions(starts_b, sizes_b)
-    pts = np.zeros((b, cap, 3), np.float32)
-    pts[flat_row, within] = colors[order[flat_pos]]
-    valid = np.zeros((b, cap), bool)
-    valid[flat_row, within] = True
+    colors[order[starts_b[r] + j]], j < sizes_b[r], gathered on the device from
+    the level's colors and order tensors.  Returns (B, cap) labels."""
+    dev = colors_dev.device
+    ss = torch.from_numpy(np.stack([starts_b, sizes_b]).astype(np.int64)).to(dev)
+    within = torch.arange(cap, device=dev)[None, :]
+    valid = within < ss[1][:, None]
+    pos = torch.where(valid, ss[0][:, None] + within, torch.zeros_like(within))
+    pts = colors_dev[order_dev[pos]].float() * valid[..., None]
     labels = CL.kmeans_rows(
-        torch.from_numpy(pts).to(device), torch.from_numpy(valid).to(device),
-        ks_b, k_max=k_max, iters=10, seed=seed, plusplus=k_max <= 256,
+        pts, valid, ks_b, k_max=k_max, iters=10, seed=seed, plusplus=k_max <= 256,
     )
     return labels.cpu().numpy()
 
 
 def _split_oversized_batched(colors, cluster_of_pair, pair_max_colors,
                              next_cluster, seed, device, method="kmeans",
-                             margin=1.0):
+                             margin=1.0, colors_dev_pre=None):
     """Split clusters above their per-segment max size, level-synchronously.
 
     Each level gathers ALL oversized clusters, buckets them by size and runs
@@ -411,11 +433,17 @@ def _split_oversized_batched(colors, cluster_of_pair, pair_max_colors,
     oversized, so each level sorts that frontier only; ids are compacted once
     after the loop (split keys exceed every live id, so the numbering equals
     a per-level compaction).
+
+    The colors table is the same at every level and goes to the device once;
+    `colors_dev_pre` is that table where it is there already (the device pair
+    table's post-repair colors, any integer or float dtype, at least
+    len(colors) rows).
     """
     if method not in ("kmeans", "hybrid"):
         raise NotImplementedError(f"split_method={method!r} is not ported yet")
     active = None
     any_split = False
+    colors_dev = colors_dev_pre
     for _level in range(8):
         if active is None:
             order = native.argsort_i64(cluster_of_pair)
@@ -484,12 +512,15 @@ def _split_oversized_batched(colors, cluster_of_pair, pair_max_colors,
                 key_base += np.int64(lab.max()) + 1
                 next_active.append(order[s : s + m])
         with stage_timer("split.kmeans"):
+            if colors_dev is None:
+                colors_dev = torch.from_numpy(colors).to(device)
+            order_dev = torch.from_numpy(order).to(device)
             for cap, rows in _bucketize(sizes[oversized], _SPLIT_CAPS).items():
                 ids = oversized[rows]
                 k_max = _pad_kmax(int(ks[rows].max()))
                 labels = _kmeans_bucket(
-                    colors, order, starts[ids], sizes[ids], ks[rows], cap, k_max,
-                    seed, device,
+                    colors_dev, order_dev, starts[ids], sizes[ids], ks[rows], cap,
+                    k_max, seed,
                 )
                 flat_pos, flat_row, within = native.flat_run_positions(
                     starts[ids], sizes[ids]

@@ -47,6 +47,7 @@ _SIGNATURES = {
     "argsort_i64": (None, [_P, _I64, _P]),
     "pack_pairs": (_I64, [_P, _P, _I64, _P, _P, _P]),
     "black_repair_pairs": (_I64, [_P, _P, _I64, _P, _I64, _P]),
+    "unpack_pair_table_i32": (None, [_P, _I64, _P, _P]),
     "split_pair_uniq": (None, [_P, _I64, _P, _P, _P]),
     "cluster_means_u8": (None, [_P, _P, _P, _I64, _I64, _P]),
     "paint_masked_indices": (None, [_P, _P, _P, _I64, _I32, _P]),
@@ -252,16 +253,42 @@ def pack_pairs(image_rgb: np.ndarray, seg_map: np.ndarray):
     return uniq[:m].copy(), inverse, counts[:m].copy()
 
 
-def black_repair_pairs(uniq: np.ndarray, counts: np.ndarray, inverse: np.ndarray) -> int:
-    """Per-segment black repair of a sorted pair table, in place; returns the
-    compacted pair count (see the JAX package's native.black_repair_pairs)."""
-    for a in (uniq, counts, inverse):
+def black_repair_pairs(uniq: np.ndarray, counts: np.ndarray,
+                       inverse: np.ndarray | None, return_remap: bool = False):
+    """Per-segment black repair of a sorted pair table, in place.
+
+    uniq/counts: (m,) int64 sorted seg<<24|rgb keys and pixel counts; inverse:
+    (n_masked,) int64 pair ids, or None to repair the table only (the device
+    pair table keeps the per-pixel state on the device and applies the remap
+    there).  Black pairs in segments with non-black colours remap to the
+    segment's darkest non-black pair (counts fold into the target); the table
+    compacts in place and inverse, when given, is rewritten.  Returns the
+    compacted pair count, or (count, remap (m,) int64 old row -> new row) with
+    return_remap.
+    """
+    for a in (uniq, counts) + (() if inverse is None else (inverse,)):
         if a.dtype != np.int64 or not a.flags.c_contiguous:
             raise ValueError("black_repair_pairs takes contiguous int64 arrays")
     remap = np.empty(len(uniq), np.int64)
-    return int(get_lib().black_repair_pairs(
-        _ptr(uniq), _ptr(counts), len(uniq), _ptr(inverse), inverse.size, _ptr(remap)
+    m = int(get_lib().black_repair_pairs(
+        _ptr(uniq), _ptr(counts), len(uniq),
+        None if inverse is None else _ptr(inverse),
+        0 if inverse is None else inverse.size, _ptr(remap),
     ))
+    return (m, remap) if return_remap else m
+
+
+def unpack_pair_table(table: np.ndarray):
+    """(uniq int64, counts int64), the pack_pairs key layout, from a device
+    pair table: (n, 3) int32 rows [seg, col, count]."""
+    t = np.ascontiguousarray(table)
+    if t.ndim != 2 or t.shape[1] != 3 or t.dtype != np.int32:
+        raise ValueError("unpack_pair_table takes an (n, 3) int32 table")
+    n = len(t)
+    uniq = np.empty(n, np.int64)
+    counts = np.empty(n, np.int64)
+    get_lib().unpack_pair_table_i32(_ptr(t), n, _ptr(uniq), _ptr(counts))
+    return uniq, counts
 
 
 def split_pair_uniq(uniq: np.ndarray):

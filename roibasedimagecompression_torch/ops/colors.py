@@ -1,7 +1,8 @@
 """Color space conversions as torch ops on (..., 3) uint8 tensors.
 
 rgb_to_lab reproduces skimage.color.rgb2lab (sRGB -> linear -> XYZ D65 ->
-CIELAB); rgb_to_gray_skimage is skimage's rgb2gray.
+CIELAB); rgb_to_gray_skimage is skimage's rgb2gray and rgb_to_gray_cv2 is
+OpenCV's BT.601 gray (the Canny input).
 
 The JAX package runs these through XLA on the CPU, which rewrites a division
 by a constant into a multiplication by its float32 reciprocal and contracts
@@ -37,6 +38,17 @@ def _f32(x: float) -> float:
 _INV255 = _f32(1.0 / 255.0)
 
 
+def rgb_to_gray_cv2(rgb: torch.Tensor) -> torch.Tensor:
+    """cv2.cvtColor(..., COLOR_RGB2GRAY): 0.299 R + 0.587 G + 0.114 B rounded
+    (half to even) back to uint8.  The sum is rounded where XLA's CPU code
+    rounds it, which decides the exact .5 cases: equal to the JAX function on
+    all 2^24 colors."""
+    x = rgb.float()
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    y = fma32(_f32(0.114), b, fma32(_f32(0.299), r, _f32(0.587) * g))
+    return torch.clamp(torch.round(y), 0, 255).to(torch.uint8)
+
+
 def rgb_to_gray_skimage(rgb: torch.Tensor) -> torch.Tensor:
     """skimage.color.rgb2gray on uint8: float32 in [0, 1],
     weights 0.2125 / 0.7154 / 0.0721."""
@@ -53,12 +65,25 @@ _RGB2XYZ = (
 _XYZ_REF = (0.95047, 1.0, 1.08883)
 
 
+def _pow32(x: torch.Tensor, exponent: float) -> torch.Tensor:
+    """float32 x ** exponent through float64, rounded once.
+
+    The float32 `pow` of the CPU and of the card differ in the last bit for
+    about one value in six, which is enough to move a SLIC label and, through
+    a palette that gains or loses one color, every later draw of the k-means.
+    Both libraries' float64 `pow` is within an ulp of float64, far below
+    float32's spacing, so the rounded result is the same on both (and is the
+    correctly rounded power but for one value in 2^28)."""
+    return torch.pow(x.double(), exponent).float()
+
+
 def rgb_to_lab(rgb: torch.Tensor) -> torch.Tensor:
-    """skimage.color.rgb2lab for uint8 RGB -> float32 (..., 3) Lab."""
+    """skimage.color.rgb2lab for uint8 RGB -> float32 (..., 3) Lab; the same
+    bits on the CPU and on the card."""
     s = rgb.float() * _INV255
     linear = torch.where(
         s > 0.04045,
-        torch.pow((s + 0.055) * _f32(1.0 / 1.055), 2.4),
+        _pow32((s + 0.055) * _f32(1.0 / 1.055), 2.4),
         s * _f32(1.0 / 12.92),
     )
     l0, l1, l2 = linear[..., 0], linear[..., 1], linear[..., 2]
@@ -68,7 +93,7 @@ def rgb_to_lab(rgb: torch.Tensor) -> torch.Tensor:
         t = xyz * _f32(1.0 / ref) if ref != 1.0 else xyz
         f = torch.where(
             t > 0.008856,
-            torch.pow(t.clamp_min(0.0), 1.0 / 3.0),
+            _pow32(t.clamp_min(0.0), 1.0 / 3.0),
             t * 7.787 + _f32(16.0 / 116.0),
         )
         out.append(f)

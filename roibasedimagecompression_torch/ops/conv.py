@@ -38,6 +38,14 @@ def _sep3(img: torch.Tensor, vker, hker) -> torch.Tensor:
     return _taps(_taps(x, 1, vker), 2, hker)
 
 
+def sobel_cv2(gray: torch.Tensor) -> tuple:
+    """cv2.Sobel(gray, CV_64F, 1, 0 / 0, 1, ksize=3) pair (gx, gy) of a
+    (B, H, W) tensor, BORDER_REFLECT_101."""
+    gx = _sep3(gray, (1.0, 2.0, 1.0), (-1.0, 0.0, 1.0))
+    gy = _sep3(gray, (-1.0, 0.0, 1.0), (1.0, 2.0, 1.0))
+    return gx, gy
+
+
 def sobel_skimage(img: torch.Tensor) -> torch.Tensor:
     """skimage.filters.sobel edge magnitude: kernels /4, magnitude /sqrt(2)."""
     h = _sep3(img, (-0.25, 0.0, 0.25), (1.0, 2.0, 1.0))

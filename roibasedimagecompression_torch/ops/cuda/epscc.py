@@ -17,6 +17,7 @@ so the count of sweeps may differ between the two and the labels may not.
 from __future__ import annotations
 
 import collections
+import threading
 
 import torch
 
@@ -28,6 +29,7 @@ launches = 0  # loop kernel (eps_components_kernel) launches since the last rese
 sweep_launches = 0  # launches of the single sweep (eps_sweep_kernel) since the last reset
 rounds = 0  # rounds the loop kernel reported back since the last reset; not a launch count
 loop_shapes: collections.Counter = collections.Counter()  # (B, N) of every loop launch
+_count_lock = threading.Lock()  # encode_stream launches from several threads
 
 
 def eps_sweep_ref(points, labels, valid, groups, eps2) -> torch.Tensor:
@@ -96,28 +98,40 @@ def eps_sweep(points, labels, valid, groups, eps2) -> torch.Tensor:
     packed, gcol, out, meta = _pack(lib, dev, b, n, points, None, valid, groups, eps2, False)
     _build.launch(lib, "eps_sweep_launch", dev, packed.data_ptr(), groups.data_ptr(),
                   gcol.data_ptr(), labels.data_ptr(), out.data_ptr(), meta.data_ptr(), b, n)
-    sweep_launches += 1
+    with _count_lock:
+        sweep_launches += 1
     return out
 
 
-def _components_cuda(b, n, dev, points, rows, valid, groups, eps2):
-    """Pack, run the loop kernel, read back the round count: 2 launches and
-    one device-to-host read per call."""
-    global launches, rounds
-    if b == 0 or n == 0:
-        return torch.empty((b, n), dtype=torch.int32, device=dev), 0
+def enqueue_components(b, n, dev, points, rows, valid, groups, eps2):
+    """Enqueue the pack kernel and the loop kernel on the current stream and
+    return (labels, meta) on the card without waiting for either: what a
+    caller times by CUDA events to see the loop's device time alone."""
+    global launches
     lib = _build.load("epscc")
     packed, gcol, lab, meta = _pack(lib, dev, b, n, points, rows, valid, groups, eps2, True)
     boxes = torch.empty((b, -(-n // 256), 2), dtype=torch.int32, device=dev)
     _build.launch(lib, "eps_components_launch", dev, packed.data_ptr(), gcol.data_ptr(),
                   lab.data_ptr(), meta.data_ptr(), boxes.data_ptr(), b, n)
-    launches += 1
-    loop_shapes[(b, n)] += 1
+    with _count_lock:
+        launches += 1
+        loop_shapes[(b, n)] += 1
+    return lab, meta
+
+
+def _components_cuda(b, n, dev, points, rows, valid, groups, eps2):
+    """Pack, run the loop kernel, read back the round count: 2 launches and
+    one device-to-host read per call."""
+    global rounds
+    if b == 0 or n == 0:
+        return torch.empty((b, n), dtype=torch.int32, device=dev), 0
+    lab, meta = enqueue_components(b, n, dev, points, rows, valid, groups, eps2)
     meta = meta.cpu()
     if int(meta[4 * b + 2]):
         raise ValueError("eps components: colours must be integers in [0, 255]")
     sweeps = int(meta[3 : 4 * b : 4].max()) + 2
-    rounds += sweeps
+    with _count_lock:
+        rounds += sweeps
     return lab, sweeps
 
 

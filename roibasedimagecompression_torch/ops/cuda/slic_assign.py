@@ -16,6 +16,7 @@ products, and the left one is fused).  With this arithmetic the ids equal
 from __future__ import annotations
 
 import collections
+import threading
 
 import torch
 
@@ -24,6 +25,7 @@ from roibasedimagecompression_torch.ops.cuda import _build
 
 launches = 0  # kernel launches since the last reset (chip_smoke reads it)
 launch_shapes: collections.Counter = collections.Counter()  # (B, MP, K) of every launch
+_count_lock = threading.Lock()  # encode_stream launches from several threads
 
 
 def slic_assign_ref(feats: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
@@ -68,6 +70,7 @@ def slic_assign(feats: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, mp), dtype=torch.int32, device=feats.device)
     _build.launch(lib, "slic_assign_launch", feats.device, feats.data_ptr(), centers.data_ptr(),
                   out.data_ptr(), b, mp, centers.shape[1])
-    launches += 1
-    launch_shapes[(b, mp, centers.shape[1])] += 1
+    with _count_lock:
+        launches += 1
+        launch_shapes[(b, mp, centers.shape[1])] += 1
     return out

@@ -180,8 +180,12 @@ def slic_many(
     Landscape regions are transposed to portrait (exact: distances, updates
     and connectivity are coordinate-order invariant) and grouped by padded
     shape and centre cap (64 or 256).  Rows with a `sources` entry slice their
-    crop from the device batch `dbatch`.  Returns (h_i, w_i) int32 label maps
-    (0 outside mask, 1..n inside).
+    crop from the device batch `dbatch`, and their Lloyd loop runs on the
+    region-id raster's mask: where two regions of one kind overlap (a small
+    ROI region demoted into the non-ROI buffer zone) the raster holds the
+    later one, as in the JAX package; the centres and the connectivity pass
+    use `masks` on every path.  Returns (h_i, w_i) int32 label maps (0
+    outside mask, 1..n inside).
     """
     n = len(images)
     out: list = [None] * n
@@ -215,12 +219,14 @@ def slic_many(
             cyx = np.zeros((bsz, k_cap, 2), np.int64)
             cval = np.zeros((bsz, k_cap), bool)
             steps = np.ones(bsz, np.float32)
+            raster_masks = []
             for row, i in enumerate(ids):
                 mask, centers_yx, step, _, transposed = metas[i]
                 h0, w0 = mask.shape
                 masks_b[row, :h0, :w0] = mask
                 if sources[i] is not None and dbatch is not None:
-                    rgb_b[row, :h0, :w0] = dbatch.crop(sources[i], transposed)[0]
+                    rgb_b[row, :h0, :w0], raster = dbatch.crop(sources[i], transposed)
+                    raster_masks.append((row, h0, w0, raster))
                 else:
                     img = np.asarray(images[i], np.uint8)
                     if transposed:
@@ -230,9 +236,12 @@ def slic_many(
                 cyx[row, :kc] = centers_yx
                 cval[row, :kc] = True
                 steps[row] = step
+            core_masks = torch.from_numpy(masks_b).to(device)
+            for row, h0, w0, raster in raster_masks:
+                core_masks[row, :h0, :w0] = raster
             assign_b = _slic_core_batch(
                 rgb_b,
-                torch.from_numpy(masks_b).to(device),
+                core_masks,
                 torch.from_numpy(cyx).to(device),
                 torch.from_numpy(cval).to(device),
                 torch.from_numpy(steps).to(device),

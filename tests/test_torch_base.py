@@ -24,17 +24,31 @@ PORT = ROOT / "roibasedimagecompression_torch"
 
 
 def test_port_imports_no_jax():
-    """The port runs its public functions without importing jax or the JAX
-    package (fresh interpreter)."""
+    """The port imports every module it has and runs its public functions
+    without importing jax or the JAX package (fresh interpreter)."""
+    modules = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT.rglob("*.py")
+    )
+    assert "roibasedimagecompression_torch.parallel.stream" in modules
+    assert "roibasedimagecompression_torch.ops.pairs" in modules
     code = (
-        "import sys\n"
+        "import importlib, sys\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
         "import roibasedimagecompression_torch as rtt\n"
+        "from roibasedimagecompression_torch.parallel import stream\n"
+        "from roibasedimagecompression_torch.ops import metrics\n"
         "from roibasedimagecompression_torch.utils.synthetic import synthetic_image\n"
         "img = synthetic_image(5, 96, 128)\n"
         "data = rtt.encode(img, device='cpu')\n"
         "out = rtt.decode(data)\n"
         "assert out.shape == img.shape\n"
         "assert rtt.unpack(data).shape == (96, 128)\n"
+        "fast = rtt.CodecConfig.low_latency()\n"
+        "assert stream.encode_many([img], fast, device='cpu') == [rtt.encode(img, fast, device='cpu')]\n"
+        "assert stream.encode_stream([[img], [img]], device='cpu') == [[data], [data]]\n"
+        "assert metrics.quality_metrics(img, out, device='cpu')['psnr'] > 28\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('roibasedimagecompression_tpu')]\n"
         "assert not bad, bad\n"
@@ -47,6 +61,28 @@ def test_port_imports_no_jax():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("ok")
+
+
+def test_port_and_chip_smoke_import_statements():
+    """No import statement of the port, or of chip_smoke.py, names jax or the
+    JAX package (chip_smoke.py names that package's files in strings only)."""
+    import ast
+
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 30
+    hits = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            hits += [
+                (str(path.relative_to(ROOT)), n) for n in names
+                if n.split(".")[0] in ("jax", "jaxlib", "roibasedimagecompression_tpu")
+            ]
+    assert hits == []
 
 
 def test_port_sources_never_name_the_jax_package():
