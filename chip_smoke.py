@@ -36,18 +36,29 @@ Phases, in order; any failed check exits non-zero:
      `counts`, the post-repair colors, the painted index map and the refit
      rows, all exact; sort, compact, paint and refit times by CUDA events;
   7. batch: `encode_many` of those 8 images at `CodecConfig()` on the card,
-     counts read around it: bytes against the CPU `encode_many` (equal, else
-     segment maps >= 99.5 %, |dPSNR| <= 0.05 dB, |size| <= 1 %), equal with
+     counts read around it: bytes of the first 4 against the CPU `encode_many`
+     of those 4 (equal, else segment maps >= 99.5 %, |dPSNR| <= 0.05 dB,
+     |size| <= 1 %), all 8 equal with
      RHCCQ_DEVICE_PAIRS=0, every image above 28 dB, PSNR and SSIM, stage
      seconds, launch shapes, idle share; the same once at
      `CodecConfig.low_latency()`;
   8. stream: `encode_stream` of 3 batches of 8 with workers=2 against three
      sequential `encode_many` calls, byte for byte, under a deadline (a hang
      of the cooperative kernel under two threads ends the run non-zero);
-  9. cover: every (B, MP, K) and (B, N) that phases 5, 7 and 8 launched and
+  9. cli: the two images of phase 5 written as PNGs in the layout the
+     `sweep` subcommand reads; `python3 -m roibasedimagecompression_torch
+     encode` once as a subprocess (at CodecConfig()'s split margin, so its
+     bytes must equal phase 5's), then in process, counts read around each:
+     `encode` at the CLI's defaults and with `--split-method mediancut`,
+     `--split-method kmeans-mc`, `--enhance-shadows`, `--container-level 7`,
+     each against the same command with `--device cpu` (the phase-7 rule);
+     `decode` to PNG, `eval` and `eval --adaptive` (PSNR above 28 dB and
+     equal to `quality_metrics` on the card), `sweep` (2 CSV rows) and
+     `compare` against a JPEG baseline; seconds of each subcommand;
+ 10. cover: every (B, MP, K) and (B, N) that phases 5, 7, 8 and 9 launched and
      phases 3 and 4 did not check is checked against the plain version now,
      so no path runs a kernel at a shape the run has not held;
- 10. one JSON line of kernel measurements, then the card line, then the
+ 11. one JSON line of kernel measurements, then the card line, then the
      final {"ok": true, ...} line.
 
 Without CUDA, or without the package beside this file, it exits non-zero
@@ -56,10 +67,13 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -230,26 +244,40 @@ def median_ms(fn, reps=5) -> float:
     return statistics.median(times)
 
 
-def count_device_calls(fn) -> dict:
+def count_device_calls(fn, tries=3) -> dict:
     """Kernels, copies/memsets and host synchronisations of one call of `fn`,
-    read from a profiler trace."""
+    read from a profiler trace, and the loop kernel's launches by its
+    wrapper's count.  The profiler now and then hands back a trace of so short
+    a window without any of the card's activity (the host's side is there);
+    it is then asked again, and after `tries` such traces `kernels` and
+    `copies` are None (not measured) and only the count says the loop ran."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels, copies, syncs = [], 0, 0
-    for ev in prof.events():
-        on_card = ev.device_type == torch.autograd.DeviceType.CUDA
-        name = ev.name
-        if on_card and name.lower().startswith(("memcpy", "memset")):
-            copies += 1
-        elif on_card:
-            kernels.append(name.split("<")[0].split("(anonymous namespace)::")[-1].split("(")[0][-40:])
-        elif name in ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize"):
-            syncs += 1
-    return {"kernels": kernels, "copies": copies, "syncs": syncs - 1}  # less the closing one
+    from roibasedimagecompression_torch.ops.cuda import epscc as EPS
+
+    for _ in range(tries):
+        before = EPS.launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        loop_launches = EPS.launches - before
+        kernels, copies, syncs = [], 0, 0
+        for ev in prof.events():
+            on_card = ev.device_type == torch.autograd.DeviceType.CUDA
+            name = ev.name
+            if on_card and name.lower().startswith(("memcpy", "memset")):
+                copies += 1
+            elif on_card:
+                kernels.append(name.split("<")[0].split("(anonymous namespace)::")[-1].split("(")[0][-40:])
+            elif name in ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize"):
+                syncs += 1
+        if kernels or copies:
+            break
+    else:
+        kernels = copies = None
+    return {"kernels": kernels, "copies": copies, "syncs": syncs - 1,  # less the closing one
+            "loop_launches": loop_launches}
 
 
 def sorted_eps_inputs(device, b, n, eps=64.0, seed=1):
@@ -556,7 +584,7 @@ def run_end_to_end(device, n_images=2, h=512, w=768, compare_cpu=True):
         compare_with_cpu(results, images, datas, refs, cfg.CodecConfig(), device)
     idle = device_idle_share(lambda: [rtt.encode(img, device=device) for img in images]) \
         if device.type == "cuda" else None
-    return results, launches, shapes, stages, idle
+    return results, launches, shapes, stages, idle, images, datas
 
 
 def check_pairs(device, images):
@@ -622,8 +650,11 @@ def check_pairs(device, images):
     return rec
 
 
-def run_batch(device, images, config, compare_cpu=True, profile=True):
-    """The batch path: one warm `encode_many`, the counts read around it."""
+def run_batch(device, images, config, compare_cpu=True, profile=True, n_cpu=4):
+    """The batch path: one warm `encode_many`, the counts read around it.
+    The first `n_cpu` images are held to the CPU `encode_many` of those
+    images (an image's bytes do not depend on the rest of its batch, and a
+    CPU encode of 8 such images takes minutes)."""
     from roibasedimagecompression_torch.parallel import stream as STREAM
     from roibasedimagecompression_torch.utils import timing
 
@@ -642,8 +673,8 @@ def run_batch(device, images, config, compare_cpu=True, profile=True):
         del os.environ["RHCCQ_DEVICE_PAIRS"]
     check(host_pack == datas, "encode_many with RHCCQ_DEVICE_PAIRS=0 wrote other bytes")
     if compare_cpu and device.type == "cuda":
-        refs = STREAM.encode_many(images, config, "cpu")
-        compare_with_cpu(results, images, datas, refs, config, device)
+        refs = STREAM.encode_many(images[:n_cpu], config, "cpu")
+        compare_with_cpu(results, images[:n_cpu], datas, refs, config, device)
     idle = device_idle_share(lambda: STREAM.encode_many(images, config, device)) \
         if profile and device.type == "cuda" else None
     return {"seconds": seconds, "images_per_second": len(images) / seconds, "results": results,
@@ -700,10 +731,156 @@ def run_stream(device, batches, first_batch_datas, deadline=300.0, profile=True)
             "idle": idle}
 
 
+CLI_OPTIONS = (("mediancut", ["--split-method", "mediancut"]),
+               ("kmeans-mc", ["--split-method", "kmeans-mc"]),
+               ("enhance-shadows", ["--enhance-shadows"]),
+               ("container-level-7", ["--container-level", "7"]))
+
+
+def cli_main(argv) -> tuple:
+    """`__main__.main(argv)` in this process: (return code, its standard
+    output, seconds)."""
+    from roibasedimagecompression_torch import __main__ as CLI
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = CLI.main([str(a) for a in argv])
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def cli_config(extra):
+    """The CodecConfig the CLI builds for `extra` on top of its defaults."""
+    from roibasedimagecompression_torch import config as cfg
+
+    kw = {"split_margin": 2.0}
+    if "--split-method" in extra:
+        kw["split_method"] = extra[extra.index("--split-method") + 1]
+    if "--container-level" in extra:
+        kw["container_level"] = int(extra[extra.index("--container-level") + 1])
+    return cfg.CodecConfig(**kw)
+
+
+def run_cli(device, images, datas, compare_cpu=True):
+    """The command line over `images` (phase 5's), in the layout `sweep`
+    reads.  Returns per-subcommand seconds, the in-process encodes' launch
+    counts and shapes (each option read around its own run) and their
+    stage seconds."""
+    import numpy as np
+
+    from roibasedimagecompression_torch.io import container, image_io
+    from roibasedimagecompression_torch.models.enhance import enhance_shadows
+    from roibasedimagecompression_torch.ops import metrics
+    from roibasedimagecompression_torch.utils import timing
+
+    out = {"seconds": {}, "options": {}}
+    with tempfile.TemporaryDirectory() as root:
+        os.makedirs(os.path.join(root, "png"))
+        os.makedirs(os.path.join(root, "rhccq_20_10"))
+        pngs = [os.path.join(root, "png", f"{i + 1}.png") for i in range(len(images))]
+        rqs = [os.path.join(root, "rhccq_20_10", f"compressed_{i + 1}.rhccq") for i in range(len(images))]
+        for path, img in zip(pngs, images):
+            image_io.imwrite(path, img)
+        # The real entry point once: at CodecConfig()'s split margin (the CLI's
+        # default is 2.0), so it writes phase 5's bytes.
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "roibasedimagecompression_torch", "encode", pngs[0], rqs[0],
+             "--split-margin", "1.5", "--device", device.type],
+            capture_output=True, text=True, timeout=600, cwd=HERE,
+            env=dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", "")),
+        )
+        out["seconds"]["encode (python3 -m, a new process)"] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"python3 -m ... encode exited {proc.returncode}: {proc.stderr[-2000:]}")
+        out["subprocess_line"] = proc.stdout.strip()
+        with open(rqs[0], "rb") as f:
+            check(f.read() == datas[0], "the CLI encode (python3 -m) differs from encode() of the same image")
+
+        # In process, at the CLI's defaults and with each option, counts read
+        # around each; each held to the same command with --device cpu.
+        for label, extra in (("defaults", []),) + CLI_OPTIONS:
+            target = rqs[1] if label == "defaults" else os.path.join(root, f"{label}.rhccq")
+            argv = ["encode", pngs[1], target, *extra, "--device", device.type]
+            cli_main(argv)  # warm-up: this option's first-use costs
+            reset_counts()
+            rc, line, secs = cli_main(argv)
+            launches, shapes = read_counts()
+            stages = timing.stage_report()
+            check(rc is None, f"encode {extra} returned {rc}")
+            for name in ("slic_assign", "eps_components"):
+                check(device.type != "cuda" or launches[name] > 0,
+                      f"the CLI encode {extra} launched {name} no time")
+            rec = {"seconds": secs, "line": line.strip(), "launches": launches, "shapes": shapes,
+                   "stages": {k: v["seconds"] for k, v in stages.items()}}
+            with open(target, "rb") as f:
+                data = f.read()
+            img = images[1]
+            if "--enhance-shadows" in extra:
+                img = enhance_shadows(img, device=device)
+            rec["psnr_db"] = psnr(img, container.unpack(data).to_rgb())
+            check(rec["psnr_db"] > 28.0, f"CLI encode {extra}: PSNR {rec['psnr_db']:.2f} dB is below 28 dB")
+            if compare_cpu and device.type == "cuda":
+                ref_path = os.path.join(root, f"{label}.cpu.rhccq")
+                t0 = time.perf_counter()
+                check(cli_main(["encode", pngs[1], ref_path, *extra, "--device", "cpu"])[0] is None,
+                      f"encode {extra} --device cpu failed")
+                rec["cpu_seconds"] = time.perf_counter() - t0
+                with open(ref_path, "rb") as f:
+                    ref = f.read()
+                r = [{"psnr_db": rec["psnr_db"]}]
+                compare_with_cpu(r, [img], [data], [ref], cli_config(extra), device)
+                rec.update(r[0])
+            out["options"][label] = rec
+            out["seconds"][f"encode {' '.join(extra) or '(defaults)'}"] = secs
+
+        # Decode and score.
+        rc, _, out["seconds"]["decode"] = cli_main(["decode", rqs[1], os.path.join(root, "d.png")])
+        check(rc is None, "decode failed")
+        decoded = image_io.imread_rgb(os.path.join(root, "d.png"))
+        check(np.array_equal(decoded, container.decode_file(rqs[1])), "decode wrote other pixels")
+        want = metrics.quality_metrics(images[1], decoded, device)
+        for flag in ([], ["--adaptive"]):
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                rc, text, secs = cli_main(["eval", pngs[1], rqs[1], *flag, "--device", device.type])
+            out["seconds"][f"eval {' '.join(flag)}".strip()] = secs
+            got = json.loads(text)
+            check(rc is None and got["psnr"] == want["psnr"] and got["ssim"] == want["ssim"],
+                  f"eval {flag} printed psnr {got['psnr']}, ssim {got['ssim']}; quality_metrics gives {want}")
+            check(got["psnr"] > 28.0, f"eval PSNR {got['psnr']:.2f} dB is below 28 dB")
+            if flag:
+                check("adaptive" in got and "OUTLIER DETECTION" in err.getvalue(), "eval --adaptive printed no report")
+        out["eval"] = got
+        csv_path = os.path.join(root, "sweep.csv")
+        rc, text, out["seconds"]["sweep"] = cli_main(["sweep", root, "--csv", csv_path, "--device", device.type])
+        with open(csv_path) as f:
+            rows = f.read().splitlines()
+        check(rc is None and len(rows) == 1 + len(images), f"sweep wrote {len(rows) - 1} CSV rows")
+        out["sweep_summary"] = " | ".join(text.strip().splitlines()[3:5])
+        try:
+            import PIL  # noqa: F401  (JPEG needs Pillow)
+        except ImportError:
+            out["compare"] = "skipped: Pillow is not installed"
+        else:
+            from roibasedimagecompression_torch.eval import report
+
+            jpg = os.path.join(root, "base.jpg")
+            report.compress_with_jpeg(pngs[1], jpg, quality=85)
+            rc, text, out["seconds"]["compare --jpeg"] = cli_main(
+                ["compare", pngs[1], rqs[1], "--jpeg", jpg, "--device", device.type])
+            row = json.loads(text)
+            check(rc is None and row["rhccq"]["psnr"] == want["psnr"], "compare printed another PSNR")
+            out["compare"] = {k: row[k] for k in ("delta_psnr", "delta_ssim", "delta_bpp")}
+    return out
+
+
 def device_idle_share(fn) -> dict:
     """Run `fn` inside one profiler window and return the window's length on
     the host clock, the time in which at least one kernel or copy ran on the
-    card (union of their intervals), and the share in which none did."""
+    card (union of their intervals), and the share in which none did.  Where
+    the trace holds none of the card's activity, the busy time and the share
+    are None (not measured): the kernels' launch counts, not this window,
+    show that the path ran on the card."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -717,7 +894,8 @@ def device_idle_share(fn) -> dict:
         (ev.time_range.start, ev.time_range.end) for ev in prof.events()
         if ev.device_type == torch.autograd.DeviceType.CUDA
     )
-    check(len(spans) > 0, "the profiler window recorded no work on the card")
+    if not spans:
+        return {"window_ms": window_us / 1e3, "busy_ms": None, "device_events": 0, "idle_share": None}
     busy_us, end = 0.0, float("-inf")
     for lo, hi in spans:
         if hi > end:
@@ -748,6 +926,7 @@ def main() -> int:
 
     device = DEV.resolve(None)
     card = card_line()
+    t_script = time.perf_counter()
     # -- 1. environment ------------------------------------------------------
     print(f"[env] card: {card}")
     print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -757,6 +936,7 @@ def main() -> int:
     _, ld_name = native.libdeflate()
     print(f"[env] deflate: {ld_name or 'zlib (libdeflate not found; levels > 9 use zlib 9)'}")
 
+    print(f"[time] phase 1 ended at {time.perf_counter() - t_script:.1f} s")
     # -- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
     native.build()
@@ -768,6 +948,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
 
+    print(f"[time] phase 2 ended at {time.perf_counter() - t_script:.1f} s")
     # -- 3. kernel 1 -------------------------------------------------------------
     k1 = [check_slic_assign(device, *shape) for shape in SLIC_PATH_SHAPES + (SLIC_WIDEST_SHAPE,)]
     for r in k1:
@@ -775,6 +956,7 @@ def main() -> int:
               f"plain {r['plain_ms']:.3f} ms, cdist+argmin {r['library_ms']:.3f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
 
+    print(f"[time] phase 3 ended at {time.perf_counter() - t_script:.1f} s")
     # -- 4. kernel 2 -------------------------------------------------------------
     k2, k2_packed = check_eps_sweep(device), check_eps_packed(device)
     for r in k2:
@@ -784,22 +966,27 @@ def main() -> int:
 
     def report_loop(r):
         calls = r.get("driver_calls")
-        counted = "" if calls is None else (
-            f"; one call = {len(calls['kernels'])} kernels {calls['kernels']}, "
-            f"{calls['copies']} copies/memsets, {calls['syncs']} host synchronisations")
+        counted = ""
+        if calls is not None:
+            traced = ("the profiler saw no device activity in 3 traces" if calls["kernels"] is None else
+                      f"{len(calls['kernels'])} kernels {calls['kernels']}, {calls['copies']} copies/memsets")
+            counted = (f"; one call = {calls['loop_launches']} loop launch by count, {traced}, "
+                       f"{calls['syncs']} host synchronisations")
         print(f"[eps_loop] {r.get('entry', 'points')} B,N={r['shape']}: {r['sweeps']} rounds on the card "
               f"(plain loop {r['plain_sweeps']}, {r['plain_driver_ms']:.1f} ms), "
               f"whole call {r['driver_ms']:.3f} ms by the host clock (median of 5), "
               f"pack + loop kernels {r['loop_event_ms']:.3f} ms by CUDA events, "
               f"bound {r['bound_ms']:.4f} ms (every valid pair once){counted} [{card}]")
-        check(calls is None or (1 <= len(calls["kernels"]) <= 4 and calls["syncs"] <= 2),
+        check(calls is None or (calls["loop_launches"] == 1 and calls["syncs"] <= 2 and (
+            calls["kernels"] is None or 1 <= len(calls["kernels"]) <= 4)),
               f"the eps loop at {r['shape']} ran {calls} for {r['sweeps']} rounds: it is not on the card")
 
     for r in k2 + k2_packed:
         report_loop(r)
 
+    print(f"[time] phase 4 ended at {time.perf_counter() - t_script:.1f} s")
     # -- 5. one image at a time ---------------------------------------------------
-    results, launches_one, shapes, stages, idle = run_end_to_end(device)
+    results, launches_one, shapes, stages, idle, images_one, datas_one = run_end_to_end(device)
     for name in ("slic_assign", "eps_components", "eps_rounds"):
         check(launches_one[name] > 0, f"the one-image path launched {name} no time")
     print(f"[e2e] launches over {len(results)} encodes: {launches_one}")
@@ -813,6 +1000,7 @@ def main() -> int:
     for name, st in stages.items():
         print(f"[e2e] stage {name}: {st['seconds']:.3f} s over {st['calls']} calls [{card}]")
 
+    print(f"[time] phase 5 ended at {time.perf_counter() - t_script:.1f} s")
     # -- 6. pairs -------------------------------------------------------------------
     from roibasedimagecompression_torch import config as cfg
     from roibasedimagecompression_torch.utils.synthetic import synthetic_image
@@ -826,6 +1014,7 @@ def main() -> int:
           f"paint {pr['paint_ms']:.3f} ms, refit sums {pr['refit_ms']:.3f} ms; "
           f"host pack_pairs {pr['host_pack_ms']:.1f} ms (host clock) [{card}]")
 
+    print(f"[time] phase 6 ended at {time.perf_counter() - t_script:.1f} s")
     # -- 7. batch ---------------------------------------------------------------------
     runs = {}
     for label, config in (("default", cfg.CodecConfig()), ("low_latency", cfg.CodecConfig.low_latency())):
@@ -845,6 +1034,7 @@ def main() -> int:
             print(f"[batch {label}] profiler window over one warm encode_many: {json.dumps(br['idle'])} [{card}]")
     launches_batch = runs["default"]["launches"]
 
+    print(f"[time] phase 7 ended at {time.perf_counter() - t_script:.1f} s")
     # -- 8. stream ------------------------------------------------------------------
     sr = run_stream(device, batches, runs["default"]["datas"])
     for name in ("slic_assign", "eps_components", "eps_rounds"):
@@ -857,7 +1047,31 @@ def main() -> int:
         print(f"[stream] launch shapes, {name}: {json.dumps(hist)}")
     print(f"[stream] profiler window over one encode_stream: {json.dumps(sr['idle'])} [{card}]")
 
-    # -- 9. cover -------------------------------------------------------------------
+    print(f"[time] phase 8 ended at {time.perf_counter() - t_script:.1f} s")
+    # -- 9. cli ---------------------------------------------------------------------
+    t_cli = time.perf_counter()
+    cr = run_cli(device, images_one, datas_one)
+    t_cli = time.perf_counter() - t_cli
+    print(f"[cli] python3 -m roibasedimagecompression_torch encode: {cr['subprocess_line']}; bytes equal "
+          f"to encode() of the same image [{card}]")
+    for label, rec in cr["options"].items():
+        same = "equal to" if rec.get("bytes_equal_cpu") else "within the phase-7 rule of"
+        print(f"[cli] encode {label}: {rec['line']}; {same} --device cpu "
+              f"(cpu {rec.get('cpu_seconds', 0):.1f} s); PSNR {rec['psnr_db']:.2f} dB [{card}]")
+        print(f"[cli] encode {label} launches: {rec['launches']}")
+        for name, hist in rec["shapes"].items():
+            print(f"[cli] encode {label} launch shapes, {name}: {json.dumps(hist)}")
+        print(f"[cli] encode {label} stages: {json.dumps({k: round(v, 4) for k, v in rec['stages'].items()})} [{card}]")
+    print(f"[cli] eval: psnr {cr['eval']['psnr']:.4f} dB, ssim {cr['eval']['ssim']:.6f} (equal to "
+          f"quality_metrics on the card); sweep: {cr['sweep_summary']}; compare: {json.dumps(cr['compare'])}")
+    for name, secs in cr["seconds"].items():
+        print(f"[cli] seconds, {name}: {secs:.3f} [{card}]")
+    print(f"[cli] phase seconds: {t_cli:.1f}")
+    launches_cli = {name: sum(rec["launches"][name] for rec in cr["options"].values())
+                    for name in ("slic_assign", "eps_components", "eps_sweep_alone", "eps_rounds")}
+
+    print(f"[time] phase 9 ended at {time.perf_counter() - t_script:.1f} s")
+    # -- 10. cover ------------------------------------------------------------------
     # Whatever shape a path launched a kernel at, beyond those of phases 3 and
     # 4, is held against the plain version here.
     more = sorted(launched_shapes["slic_assign"] - {tuple(r["shape"]) for r in k1})
@@ -871,19 +1085,21 @@ def main() -> int:
     for r in k2_packed:
         r["on_path"] = tuple(r["shape"]) in launched_shapes["eps_components"]
     print(f"[cover] slic_assign also checked at {more}, the packed eps loop at {more_eps}: every "
-          f"shape the three paths launched ({len(launched_shapes['slic_assign'])} and "
+          f"shape the four paths launched ({len(launched_shapes['slic_assign'])} and "
           f"{len(launched_shapes['eps_components'])}) is held against the plain version; checked "
           f"but launched by no path: slic_assign {[r['shape'] for r in k1 if not r['on_path']]}, "
           f"packed eps loop {[r['shape'] for r in k2_packed if not r['on_path']]}")
 
-    # -- 10. kernels line ------------------------------------------------------------
-    # `launches` count both main paths, each read around its own run from 0:
-    # the one-image encodes of phase 5 plus the warm encode_many at
-    # CodecConfig() of phase 7; the stream's are beside them.
+    print(f"[time] phase 10 ended at {time.perf_counter() - t_script:.1f} s")
+    # -- 11. kernels line ------------------------------------------------------------
+    # `launches` count the main paths, each read around its own run from 0:
+    # the one-image encodes of phase 5, the warm encode_many at CodecConfig()
+    # of phase 7 and the in-process CLI encodes of phase 9; the stream's are
+    # beside them.
     def launches_of(name):
-        return {"launches": launches_one[name] + launches_batch[name],
+        return {"launches": launches_one[name] + launches_batch[name] + launches_cli[name],
                 "launches_one_image": launches_one[name], "launches_batch": launches_batch[name],
-                "launches_stream": sr["launches"][name]}
+                "launches_cli": launches_cli[name], "launches_stream": sr["launches"][name]}
 
     # The headline numbers of each entry are those of the largest shape a path
     # launched it at (by pixels, B * MP, and by pairs, B * N * N): (8, 221184,
@@ -909,7 +1125,8 @@ def main() -> int:
         # beside its launch; the sweep kernel alone (eps_sweep_kernel, which
         # `ms` times) is launched by no encode.
         | launches_of("eps_components")
-        | {"launches_alone": launches_one["eps_sweep_alone"] + launches_batch["eps_sweep_alone"],
+        | {"launches_alone": launches_one["eps_sweep_alone"] + launches_batch["eps_sweep_alone"]
+                            + launches_cli["eps_sweep_alone"],
            "max_abs_err": max(r["max_abs_err"] for r in k2),
            "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
            "bound_by": big["bound_by"], "library_ms": None,
@@ -918,7 +1135,7 @@ def main() -> int:
          "source": "roibasedimagecompression_torch/csrc/epscc.cu",
          "replaces": "roibasedimagecompression_tpu/ops/pallas/epscc.py:97"}
         | launches_of("eps_components")
-        | {"rounds": launches_one["eps_rounds"] + launches_batch["eps_rounds"],
+        | {"rounds": launches_one["eps_rounds"] + launches_batch["eps_rounds"] + launches_cli["eps_rounds"],
            "max_abs_err": max(r["loop_max_abs_err"] for r in k2 + k2_packed),
            # One whole call (pack, loop kernel, read-back) through the packed
            # entry at the largest shape a path launched; its bound is one

@@ -120,9 +120,9 @@ class CodecConfig:
     """Top-level codec configuration (quality preset + pipeline switches).
 
     Field meanings are those of the JAX package's CodecConfig.  This port runs
-    the default batched path; `batched=False`, `region_fusion`,
-    `fill_black_holes > 0`, `weighted_split` and the non-default split methods
-    other than "kmeans" raise NotImplementedError in `encode`.
+    the default batched path, with every split method; `batched=False`,
+    `region_fusion`, `fill_black_holes > 0` and `weighted_split` raise
+    NotImplementedError in `encode`.
     """
 
     roi_quality: float = 20.0

@@ -175,7 +175,41 @@ def unpack(data: bytes) -> Rhccq:
     return Rhccq(palette=palette, indices=indices, shape=(int(h), int(w)))
 
 
+def save(palette: np.ndarray, indices: np.ndarray, path, shape=None, *,
+         use_rle: bool = False) -> int:
+    """Write an .rhccq file (level 0); returns the file size in bytes."""
+    data = pack(palette, indices, shape, use_rle=use_rle)
+    with open(path, "wb") as f:
+        f.write(data)
+    return len(data)
+
+
+def load(path) -> Rhccq:
+    with open(path, "rb") as f:
+        return unpack(f.read())
+
+
+def describe(data: bytes) -> str:
+    """Human-readable report of a container: shape, palette, index dtype
+    against the smallest that holds the indices, and the rate."""
+    payload = unpack(data)
+    h, w = payload.shape
+    n = payload.n_colors
+    dtype = payload.indices.dtype
+    optimal = min_index_dtype(int(payload.indices.max()) if payload.indices.size else 0)
+    raw = h * w * 3
+    lines = [
+        f"shape: {w}x{h} ({h * w:,} pixels)",
+        f"palette: {n} colors ({n * 3:,} bytes raw)",
+        f"indices: dtype {dtype.name} ({payload.indices.nbytes:,} bytes raw); "
+        f"optimal dtype {optimal.name}"
+        + ("" if dtype == optimal else "  <- downgradable"),
+        f"file: {len(data):,} bytes = {len(data) * 8 / (h * w):.3f} bpp, "
+        f"{raw / len(data):.2f}:1 vs raw RGB",
+    ]
+    return "\n".join(lines)
+
+
 def decode_file(path) -> np.ndarray:
     """Load + reconstruct: .rhccq path -> (h, w, 3) uint8 RGB."""
-    with open(path, "rb") as f:
-        return unpack(f.read()).to_rgb()
+    return load(path).to_rgb()

@@ -341,10 +341,6 @@ def _check_ported(config: cfg.CodecConfig) -> None:
     for field, item in _UNPORTED.items():
         if getattr(config, field):
             raise NotImplementedError(f"{field} is not ported yet: {item}")
-    if config.split_method not in ("hybrid", "kmeans"):
-        raise NotImplementedError(
-            f"split_method={config.split_method!r} is not ported yet: ROADMAP A12"
-        )
 
 
 def encode_batched(image_rgb: np.ndarray, config: cfg.CodecConfig, device) -> bytes:

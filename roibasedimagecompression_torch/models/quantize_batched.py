@@ -405,10 +405,66 @@ def _pca_chunk_ranks(colors, order, starts, sizes, oversized):
     return pos, flat_row, rank, n
 
 
-def _kmeans_bucket(colors_dev, order_dev, starts_b, sizes_b, ks_b, cap, k_max, seed):
+def _pca_chunk_init_means(colors, pos, flat_row, rank, n, ks, k_max):
+    """(m, k_max, 3) float32 stratified initial centres of the kmeans-mc
+    split: the point at the centre rank of each of a cluster's ks[i] chunks
+    along its principal axis (rows >= ks[i] stay zero; the k-means masks
+    them).  Real points, not chunk means, so isolated outlier colours keep a
+    centre."""
+    m = len(n)
+    chunk = rank * ks[flat_row] // n[flat_row]
+    # Centre rank of chunk c: floor((c + 0.5) * n / k).
+    target = (2 * chunk + 1) * n[flat_row] // (2 * ks[flat_row])
+    is_center = rank == target
+    key = flat_row * k_max + chunk
+    inits = np.zeros((m * k_max, 3), np.float32)
+    inits[key[is_center]] = colors[pos[is_center]]
+    return inits.reshape(m, k_max, 3)
+
+
+def _split_oversized_mediancut(colors, cluster_of_pair, pair_max_colors, next_cluster):
+    """Split oversized clusters by recursive median cut, with no device work.
+
+    Level-synchronous binary cuts: every oversized cluster is ranked along
+    its own principal axis (`_pca_chunk_ranks`) and cut at the median, the
+    lower half taking ceil(n/2); children above their limit are cut again at
+    the next level.  Sizes halve per level, so the max_colors_per_cluster law
+    holds after ceil(log2(n/max)) levels (clusters of <= 2 colours are never
+    split, as in the k-means path).  Ids are compacted once at the end.
+    """
+    active = None  # None: every position (level 0)
+    any_split = False
+    for _level in range(40):  # sizes halve per level: 2^40 rows is unreachable
+        if active is None:
+            order = native.argsort_i64(cluster_of_pair)
+        else:
+            if len(active) == 0:
+                break
+            order = active[native.argsort_i64(cluster_of_pair[active])]
+        _, starts, sizes = _runs_of_sorted(cluster_of_pair[order])
+        limits = pair_max_colors[order[starts]]
+        oversized = np.flatnonzero((sizes > limits) & (sizes > 2))
+        if len(oversized) == 0:
+            break
+        any_split = True
+        pos, flat_row, rank, n = _pca_chunk_ranks(colors, order, starts, sizes, oversized)
+        child = rank >= (n[flat_row] + 1) // 2
+        cluster_of_pair[pos] = next_cluster + flat_row * 2 + child
+        next_cluster += 2 * len(n)
+        active = pos  # only just-split children can still be oversized
+    if any_split:
+        _, cluster_of_pair = _unique_inverse(cluster_of_pair)
+        next_cluster = int(cluster_of_pair.max()) + 1
+    return cluster_of_pair, next_cluster
+
+
+def _kmeans_bucket(colors_dev, order_dev, starts_b, sizes_b, ks_b, cap, k_max, seed,
+                   inits=None):
     """Device k-means over runs of the ORDER permutation: row r's points are
     colors[order[starts_b[r] + j]], j < sizes_b[r], gathered on the device from
-    the level's colors and order tensors.  Returns (B, cap) labels."""
+    the level's colors and order tensors.  inits: (B, k_max, 3) initial
+    centres (kmeans-mc), else k-means++ or the seeded random init.  Returns
+    (B, cap) labels."""
     dev = colors_dev.device
     ss = torch.from_numpy(np.stack([starts_b, sizes_b]).astype(np.int64)).to(dev)
     within = torch.arange(cap, device=dev)[None, :]
@@ -417,6 +473,7 @@ def _kmeans_bucket(colors_dev, order_dev, starts_b, sizes_b, ks_b, cap, k_max, s
     pts = colors_dev[order_dev[pos]].float() * valid[..., None]
     labels = CL.kmeans_rows(
         pts, valid, ks_b, k_max=k_max, iters=10, seed=seed, plusplus=k_max <= 256,
+        init_centers=None if inits is None else torch.from_numpy(inits).to(dev),
     )
     return labels.cpu().numpy()
 
@@ -429,8 +486,11 @@ def _split_oversized_batched(colors, cluster_of_pair, pair_max_colors,
     Each level gathers ALL oversized clusters, buckets them by size and runs
     one batched k-means per bucket (method "kmeans"); "hybrid" first resolves
     clusters of <= 64 colors with host PCA median cuts run to limit/margin
-    within the level.  Only pairs of just-split clusters can still be
-    oversized, so each level sorts that frontier only; ids are compacted once
+    within the level; "kmeans-mc" starts each k-means from host PCA-chunk
+    points instead of k-means++; "mediancut" splits by host median cuts
+    alone (`_split_oversized_mediancut`, no device work).  Only pairs of
+    just-split clusters can still be oversized, so each level sorts that
+    frontier only; ids are compacted once
     after the loop (split keys exceed every live id, so the numbering equals
     a per-level compaction).
 
@@ -439,8 +499,11 @@ def _split_oversized_batched(colors, cluster_of_pair, pair_max_colors,
     table's post-repair colors, any integer or float dtype, at least
     len(colors) rows).
     """
-    if method not in ("kmeans", "hybrid"):
-        raise NotImplementedError(f"split_method={method!r} is not ported yet")
+    if method == "mediancut":
+        with stage_timer("split.lum"):
+            return _split_oversized_mediancut(colors, cluster_of_pair, pair_max_colors, next_cluster)
+    if method not in ("kmeans", "hybrid", "kmeans-mc"):
+        raise ValueError(f"unknown split_method {method!r}")
     active = None
     any_split = False
     colors_dev = colors_dev_pre
@@ -493,6 +556,13 @@ def _split_oversized_batched(colors, cluster_of_pair, pair_max_colors,
         lim = np.maximum(limits[oversized], 1)
         ks = np.minimum(np.maximum(2, -(-(n * float(margin)).astype(np.int64) // lim)), n)
 
+        inits = None
+        if method == "kmeans-mc":
+            pos_mc, row_mc, rank_mc, n_mc = _pca_chunk_ranks(colors, order, starts, sizes, oversized)
+            inits = _pca_chunk_init_means(
+                colors, pos_mc, row_mc, rank_mc, n_mc, ks.astype(np.int64), _pad_kmax(int(ks.max()))
+            )
+
         huge_rows = np.flatnonzero(sizes[oversized] > _SPLIT_CAPS[-1])
         if len(huge_rows):
             labs = CL.kmeans_host_many(
@@ -520,7 +590,7 @@ def _split_oversized_batched(colors, cluster_of_pair, pair_max_colors,
                 k_max = _pad_kmax(int(ks[rows].max()))
                 labels = _kmeans_bucket(
                     colors_dev, order_dev, starts[ids], sizes[ids], ks[rows], cap,
-                    k_max, seed,
+                    k_max, seed, None if inits is None else inits[rows][:, :k_max],
                 )
                 flat_pos, flat_row, within = native.flat_run_positions(
                     starts[ids], sizes[ids]

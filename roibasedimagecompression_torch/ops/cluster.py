@@ -76,13 +76,16 @@ def kmeans_rows(
     iters: int = 25,
     seed: int = 42,
     plusplus: bool = True,
+    init_centers: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Lloyd k-means on each row of a padded batch; (B, m) int32 labels.
 
     points (B, m, 3) float32 integer colours; valid (B, m) bool; k (B,) the
     per-row cluster count (<= k_max).  Every row draws from the same key
     sequence (the JAX kernel is vmapped with a static seed), so one noise
-    vector per k-means++ step serves the whole batch.
+    vector per k-means++ step serves the whole batch.  init_centers (B,
+    k_max, 3) float32, when given, are the initial centres and no draw is
+    made; rows >= k are masked out of every assignment, whatever they hold.
     """
     b, m, _ = points.shape
     dev = points.device
@@ -93,7 +96,9 @@ def kmeans_rows(
     key = prng.prng_key(seed)
     neg_inf = torch.tensor(float("-inf"), device=dev)
 
-    if plusplus:
+    if init_centers is not None:
+        centers = init_centers.to(device=dev, dtype=torch.float32)
+    elif plusplus:
         n_draws = max(int(kvec.max()), 1)
         noise = torch.tensor(_gumbel_table(int(seed), m, n_draws), device=dev)
         first_logits = torch.where(valid, torch.zeros((), device=dev), neg_inf)

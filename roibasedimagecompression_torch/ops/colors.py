@@ -77,9 +77,8 @@ def _pow32(x: torch.Tensor, exponent: float) -> torch.Tensor:
     return torch.pow(x.double(), exponent).float()
 
 
-def rgb_to_lab(rgb: torch.Tensor) -> torch.Tensor:
-    """skimage.color.rgb2lab for uint8 RGB -> float32 (..., 3) Lab; the same
-    bits on the CPU and on the card."""
+def _lab_f(rgb: torch.Tensor):
+    """The CIELAB f(X/Xn), f(Y/Yn), f(Z/Zn) of uint8 RGB, float32."""
     s = rgb.float() * _INV255
     linear = torch.where(
         s > 0.04045,
@@ -97,8 +96,63 @@ def rgb_to_lab(rgb: torch.Tensor) -> torch.Tensor:
             t * 7.787 + _f32(16.0 / 116.0),
         )
         out.append(f)
-    fx, fy, fz = out
+    return out
+
+
+def rgb_to_lab(rgb: torch.Tensor) -> torch.Tensor:
+    """skimage.color.rgb2lab for uint8 RGB -> float32 (..., 3) Lab; the same
+    bits on the CPU and on the card."""
+    fx, fy, fz = _lab_f(rgb)
     L = fy * 116.0 - 16.0
     a = (fx - fy) * 500.0
     b = (fy - fz) * 200.0
     return torch.stack([L, a, b], dim=-1)
+
+
+# XLA's CPU code calls glibc's `powf` (and takes `cbrt` as powf(|x|,
+# float32(1/3))), which is not correctly rounded; _pow32 is.  So the two 8-bit
+# Lab conversions below differ from the JAX functions by one unit on a few
+# inputs, measured over all 2^24 of them: 491 colours for rgb_to_lab_cv2, 108
+# Lab triples for lab_cv2_to_rgb (tests/test_torch_eval.py holds a sample).
+
+def rgb_to_lab_cv2(rgb: torch.Tensor) -> torch.Tensor:
+    """cv2.cvtColor(..., COLOR_RGB2LAB) for uint8: 8-bit scaled CIELAB, L
+    mapped to 0..255 (L * 255/100), a and b offset by +128; uint8."""
+    fx, fy, fz = _lab_f(rgb)
+    L = fma32(fy, 116.0, -16.0) * _f32(255.0 / 100.0)
+    a = fma32(fx - fy, 500.0, 128.0)
+    b = fma32(fy - fz, 200.0, 128.0)
+    return torch.clamp(torch.round(torch.stack([L, a, b], dim=-1)), 0, 255).to(torch.uint8)
+
+
+# inverse(_RGB2XYZ) as the JAX package computes it in float32 (LU on the
+# CPU), to the bit.
+_XYZ2RGB = tuple(float.fromhex(h) for h in (
+    "0x1.9ec816p+1", "-0x1.8982c2p+0", "-0x1.fe804ep-2",
+    "-0x1.f0422ap-1", "0x1.e040e0p+0", "0x1.546d14p-5",
+    "0x1.c7db6cp-5", "-0x1.a1e06ap-3", "0x1.0eabf0p+0",
+))
+
+
+def lab_cv2_to_rgb(lab_u8: torch.Tensor) -> torch.Tensor:
+    """Inverse of rgb_to_lab_cv2: 8-bit Lab -> uint8 RGB."""
+    x = lab_u8.float()
+    fy = fma32(x[..., 0], _f32(100.0 / 255.0), 16.0) * _f32(1.0 / 116.0)
+    fx = fma32(x[..., 1] - 128.0, _f32(1.0 / 500.0), fy)
+    fz = fma32(128.0 - x[..., 2], _f32(1.0 / 200.0), fy)
+    eps = _f32(6.0 / 29.0)
+
+    def inv_f(f):
+        return torch.where(f > eps, (f * f) * f, (f - _f32(16.0 / 116.0)) * _f32(1.0 / 7.787))
+
+    xyz = (inv_f(fx) * _f32(_XYZ_REF[0]), inv_f(fy), inv_f(fz) * _f32(_XYZ_REF[2]))
+    linear = torch.stack([
+        fma32(xyz[2], _XYZ2RGB[3 * j + 2], fma32(xyz[1], _XYZ2RGB[3 * j + 1], xyz[0] * _XYZ2RGB[3 * j]))
+        for j in range(3)
+    ], dim=-1)
+    s = torch.where(
+        linear > 0.0031308,
+        fma32(_f32(1.055), _pow32(torch.clamp_min(linear, 1e-12), 1 / 2.4), _f32(-0.055)),
+        linear * 12.92,
+    )
+    return torch.clamp(torch.round(s * 255.0), 0, 255).to(torch.uint8)

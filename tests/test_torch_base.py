@@ -23,6 +23,50 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "roibasedimagecompression_torch"
 
 
+def _prebuild_jax_native() -> None:
+    """Make sure the JAX package's host runtime is built whole, and let this
+    test worker load it (every worker imports this file before any test runs).
+
+    That package compiles its library at first use straight to the final
+    path, and two of its test files ask for it while they are collected.  In
+    a fresh checkout, with several test workers, one worker can load the file
+    while another is still writing it; the package then remembers the failure
+    and runs every later test of that worker on its slower fallbacks, which
+    write other bytes, and the tests that hold the port against it fail by
+    chance.  Here, under a file lock, a library that does not load is rebuilt
+    to a private name and renamed into place, and a worker whose package
+    gave up is told to try again.  Without a compiler nothing changes."""
+    import ctypes
+    import fcntl
+
+    from roibasedimagecompression_tpu import native as jnative
+
+    src, path = jnative._SRC, jnative._LIB_PATH
+    lock_dir = PORT / "_build"
+    lock_dir.mkdir(exist_ok=True)
+    with open(lock_dir / "jax_native.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            whole = os.path.getmtime(path) >= os.path.getmtime(src)
+            if whole:
+                ctypes.CDLL(path)
+        except OSError:
+            whole = False
+        if not whole:
+            tmp = f"{path}.{os.getpid()}.tmp"
+            cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17", src, "-o", tmp]
+            try:
+                subprocess.run(cmd, check=True, capture_output=True, timeout=600)
+            except (OSError, subprocess.SubprocessError):
+                return
+            os.replace(tmp, path)
+    if jnative._lib is None:
+        jnative._tried = False
+
+
+_prebuild_jax_native()
+
+
 def test_port_imports_no_jax():
     """The port imports every module it has and runs its public functions
     without importing jax or the JAX package (fresh interpreter)."""
@@ -32,6 +76,8 @@ def test_port_imports_no_jax():
     )
     assert "roibasedimagecompression_torch.parallel.stream" in modules
     assert "roibasedimagecompression_torch.ops.pairs" in modules
+    assert {"roibasedimagecompression_torch.__main__", "roibasedimagecompression_torch.eval.report",
+            "roibasedimagecompression_torch.models.enhance"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
@@ -49,6 +95,17 @@ def test_port_imports_no_jax():
         "assert stream.encode_many([img], fast, device='cpu') == [rtt.encode(img, fast, device='cpu')]\n"
         "assert stream.encode_stream([[img], [img]], device='cpu') == [[data], [data]]\n"
         "assert metrics.quality_metrics(img, out, device='cpu')['psnr'] > 28\n"
+        "import tempfile, os\n"
+        "from roibasedimagecompression_torch import __main__ as cli\n"
+        "from roibasedimagecompression_torch.io import image_io\n"
+        "from roibasedimagecompression_torch.eval import adaptive, report\n"
+        "d = tempfile.mkdtemp()\n"
+        "image_io.imwrite(os.path.join(d, 'a.png'), img)\n"
+        "assert cli.main(['encode', os.path.join(d, 'a.png'), os.path.join(d, 'a.rhccq'),"
+        " '--enhance-shadows', '--split-method', 'kmeans-mc', '--device', 'cpu']) is None\n"
+        "assert cli.main(['eval', os.path.join(d, 'a.png'), os.path.join(d, 'a.rhccq'), '--device', 'cpu']) is None\n"
+        "assert adaptive.adaptive_quality_metrics(img, out, device='cpu')['all_pixels']['psnr'] > 28\n"
+        "assert report.difference_maps(img, out)['absolute'].shape == img.shape\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('roibasedimagecompression_tpu')]\n"
         "assert not bad, bad\n"
@@ -192,10 +249,10 @@ def test_prng_bit_exact(seed):
         np.testing.assert_array_equal(
             np.asarray(jax.random.uniform(sub, shape)), prng.uniform(s, shape)
         )
-    # The Gumbel tail is float32 log: numpy's may differ from XLA's by an ulp.
-    g_j = np.asarray(jax.random.gumbel(sub, (4096,)))
-    g_t = prng.gumbel(s, (4096,))
-    np.testing.assert_allclose(g_t, g_j, rtol=0, atol=4e-6)
+    # The Gumbel tail takes XLA's own float32 log (prng.log32): bit-exact.
+    np.testing.assert_array_equal(
+        prng.gumbel(s, (4096,)), np.asarray(jax.random.gumbel(sub, (4096,)))
+    )
 
 
 def test_prng_categorical_matches_jax(rng):

@@ -149,7 +149,7 @@ def _coarse_palette_indices(img):
 def test_unported_options_raise():
     img = synthetic_image(1, 64, 64)
     for cfg in (tcfg.CodecConfig(batched=False), tcfg.CodecConfig(fill_black_holes=50),
-                tcfg.CodecConfig(split_method="mediancut")):
+                tcfg.CodecConfig(weighted_split=True)):
         with pytest.raises(NotImplementedError):
             rtt.encode(img, cfg, device="cpu")
     # fast_edges is ported: it encodes, and to other bytes than the sweep.

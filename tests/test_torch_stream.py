@@ -426,7 +426,7 @@ def test_low_latency_preset_converts():
 @pytest.mark.parametrize("seed,sigma", [(5, 4.0), (6, 20.0), (7, 0.0)])
 def test_metrics_match_jax(seed, sigma):
     """PSNR within 1e-4 dB, SSIM within 1e-4: float32 sums in another order
-    (average pooling against a convolution with 1/49 weights)."""
+    (the window sums of a 1/49-weight convolution, summed otherwise)."""
     a = synthetic_image(seed, 96, 128)
     b = _noisy(seed, 96, 128, sigma) if sigma else (a // 8) * 8
     ta, tb = torch.from_numpy(a), torch.from_numpy(b)
