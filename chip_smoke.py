@@ -8,12 +8,16 @@ Phases, in order; any failed check exits non-zero:
      switches, the libdeflate the container loads;
   2. build: the native host runtime (g++) and both CUDA kernels (one nvcc
      per source, started together), with the seconds each took;
-  3. kernel 1 (SLIC assign) against its plain version at the (B, MP, K) the
-     three paths below launch (the batch path's (8, 221184, 64) first; K = 64
-     throughout) and at a full bucket of the widest K, (8, 196608, 256), which
-     none of them launches; 1e6 sentinel centres; ids must be equal (an id may
-     differ only where the two candidates' distances are within one ulp: the
-     plain version emulates the fused multiply-add in float64);
+  3. kernel 1 (SLIC assign), in both its forms (the expanded form of the
+     JAX package's default and the direct form of its Pallas kernel), against
+     its plain version at the (B, MP, K) the paths below launch (the batch
+     path's (8, 221184, 64) first; K = 64 throughout) and at a full bucket of
+     the widest K, (8, 196608, 256), which none of them launches; invalid
+     centres (1e6 sentinel, masked in the expanded form); ids must be equal
+     (an id may differ only where the two candidates' distances are within
+     one ulp: the plain version emulates the fused multiply-add in float64);
+     and the k-means++ logarithm `log32` on the card against the CPU, bit for
+     bit;
   4. kernel 2 (eps sweep) against its plain version, and the loop kernel
      against the plain loop and the host union-find, at the bucket shapes
      (B, N) = (64, 1024), (16, 4096), (4, 10240): labels must be equal.  It
@@ -55,10 +59,16 @@ Phases, in order; any failed check exits non-zero:
      `decode` to PNG, `eval` and `eval --adaptive` (PSNR above 28 dB and
      equal to `quality_metrics` on the card), `sweep` (2 CSV rows) and
      `compare` against a JPEG baseline; seconds of each subcommand;
- 10. cover: every (B, MP, K) and (B, N) that phases 5, 7, 8 and 9 launched and
-     phases 3 and 4 did not check is checked against the plain version now,
-     so no path runs a kernel at a shape the run has not held;
- 11. one JSON line of kernel measurements, then the card line, then the
+ 10. canvas: the canvas tiers path on the card, counts read around each run:
+     `encode` of phase 5's 2 images and `encode_many` of the first 4 of
+     phase 7's batch under RHCCQ_CANVAS_TIERS=1, byte for byte equal to
+     phases 5 and 7 (the composed path), then both at fill_black_holes=10,
+     one image held to the CPU encode; and one `encode` under
+     RHCCQ_SLIC_PALLAS=1 (kernel 1's direct form) against the CPU;
+ 11. cover: every (form, B, MP, K) and (B, N) that phases 5, 7, 8, 9 and 10
+     launched and phases 3 and 4 did not check is checked against the plain
+     version now, so no path runs a kernel at a shape the run has not held;
+ 12. one JSON line of kernel measurements, then the card line, then the
      final {"ok": true, ...} line.
 
 Without CUDA, or without the package beside this file, it exits non-zero
@@ -132,7 +142,7 @@ def time_cuda(fn, reps: int = 20, warmup: int = 2) -> float:
 
 # (B, MP, K) that `slic_assign` is checked at before the paths run: what
 # encode_many launches at CodecConfig() (the first two) and at low_latency(),
-# and the one-image path's (1, 221184, 64).  Phase 9 checks whatever else a
+# and the one-image path's (1, 221184, 64).  The cover phase checks whatever else a
 # path launched, and says which of these none did.  The last is a full SLIC
 # bucket at the widest K the wrapper takes, which no path of this run launches.
 SLIC_PATH_SHAPES = ((8, 221_184, 64), (2, 65_536, 64), (1, 221_184, 64), (4, 81_920, 64),
@@ -142,8 +152,10 @@ SLIC_WIDEST_SHAPE = (8, 196_608, 256)
 # the one-image path's largest and two small ones, then the batch paths' tall ones.
 EPS_PACKED_SHAPES = ((7, 9999), (26, 1024), (1, 64), (48, 9999), (17, 4096), (126, 4096), (245, 1024))
 
-# Every shape a path launched a kernel at (read_counts adds to it).
+# Every shape a path launched a kernel at (read_counts adds to it); kernel 1's
+# as (form, B, MP, K).
 launched_shapes = {"slic_assign": set(), "eps_components": set()}
+SLIC_FORMS = ("expanded", "direct")
 
 
 def slic_inputs(device, b=8, mp=196_608, k=256, seed=0):
@@ -162,14 +174,22 @@ def slic_inputs(device, b=8, mp=196_608, k=256, seed=0):
     return (torch.from_numpy(feats).to(device), torch.from_numpy(centers).to(device))
 
 
-def check_slic_assign(device, b=8, mp=196_608, k=256, reps=20):
+def check_slic_assign(device, form, b=8, mp=196_608, k=256, reps=20):
+    """Kernel 1 in `form` ("expanded" or "direct") against its plain version
+    on the same inputs; the last quarter of the centres are not valid."""
     import torch
 
     from roibasedimagecompression_torch.ops.cuda import slic_assign as SA
 
     feats, centers = slic_inputs(device, b, mp, k)
-    got = SA.slic_assign(feats, centers)
-    want = SA.slic_assign_ref(feats, centers)
+    valid = torch.arange(k, device=device)[None, :].expand(b, k) < 3 * k // 4
+    if form == "expanded":
+        run = lambda: SA.slic_assign_expanded(feats, centers, valid)  # noqa: E731
+        plain = lambda: SA.slic_assign_expanded_ref(feats, centers, valid)  # noqa: E731
+    else:
+        run = lambda: SA.slic_assign(feats, centers)  # noqa: E731
+        plain = lambda: SA.slic_assign_ref(feats, centers)  # noqa: E731
+    got, want = run(), plain()
     if device.type == "cuda":
         torch.cuda.synchronize()
     n_diff = int((got != want).sum())
@@ -180,30 +200,65 @@ def check_slic_assign(device, b=8, mp=196_608, k=256, reps=20):
         f64, c64 = feats[bb, pp].double(), centers.double()
         for ids, who in ((got, "kernel"), (want, "plain")):
             d2 = ((f64 - c64[bb, ids[bb, pp].long()]) ** 2).sum(-1)
-            print(f"[slic_assign] differing ids, {who}: {ids[bb, pp][:8].tolist()} d2 {d2[:8].tolist()}")
-        d2g = ((f64 - c64[bb, got[bb, pp].long()]) ** 2).sum(-1).float()
-        d2w = ((f64 - c64[bb, want[bb, pp].long()]) ** 2).sum(-1).float()
-        ulp = torch.maximum(d2g, d2w) * 2.0**-23
-        check(bool(((d2g - d2w).abs() <= ulp).all()),
-              f"slic_assign disagrees with its plain version at {n_diff} pixels by more than one ulp")
-    check(int(got.max()) < 3 * k // 4, "a sentinel centre won an assignment")
+            print(f"[slic_assign {form}] differing ids, {who}: {ids[bb, pp][:8].tolist()} d2 {d2[:8].tolist()}")
+        d2g = ((f64 - c64[bb, got[bb, pp].long()]) ** 2).sum(-1)
+        d2w = ((f64 - c64[bb, want[bb, pp].long()]) ** 2).sum(-1)
+        scale = torch.maximum(d2g, d2w)
+        if form == "expanded":  # it rounds at the scale of |p|^2 + |c|^2
+            c2 = (c64 * c64).sum(-1)
+            scale = (f64 * f64).sum(-1) + torch.maximum(c2[bb, got[bb, pp].long()], c2[bb, want[bb, pp].long()])
+        check(bool(((d2g - d2w).abs() <= scale * 2.0**-22).all()),
+              f"slic_assign ({form}) disagrees with its plain version at {n_diff} pixels by more than one ulp")
+    check(int(got.max()) < 3 * k // 4, f"an invalid centre won an assignment ({form})")
+    expanded = form == "expanded"
     rec = {
-        "name": "slic_assign", "route": "cuda",
+        "name": "slic_assign_expanded" if expanded else "slic_assign", "route": "cuda", "form": form,
         "source": "roibasedimagecompression_torch/csrc/slic_assign.cu",
-        "replaces": "roibasedimagecompression_tpu/ops/pallas/slic_assign.py:32",
+        "replaces": ("roibasedimagecompression_tpu/ops/slic.py:139" if expanded
+                     else "roibasedimagecompression_tpu/ops/pallas/slic_assign.py:32"),
         "max_abs_err": float((got.long() - want.long()).abs().max()),
-        "shape": [b, mp, k],
+        "shape": [b, mp, k], "ids_differing": n_diff,
     }
-    ops = b * mp * k * 17.0
-    nbytes = b * mp * 5 * 4 + b * k * 5 * 4 + b * mp * 4
+    # Operations per pixel-centre pair: direct 5 sub, 5 mul, 4 add, compare,
+    # 2 selects = 17; expanded 5 mul + 4 add (the dot), add, multiply-add,
+    # compare, 2 selects = 15.
+    ops = b * mp * k * (15.0 if expanded else 17.0)
+    nbytes = b * mp * 5 * 4 + b * k * 5 * 4 + b * mp * 4 + (b * k if expanded else 0)
     rec["bound_ms"], rec["bound_by"] = bound_ms(ops, nbytes)
     if device.type == "cuda":
-        rec["ms"] = time_cuda(lambda: SA.slic_assign(feats, centers), reps)
-        rec["plain_ms"] = time_cuda(lambda: SA.slic_assign_ref(feats, centers), max(2, reps // 10), 1)
-        rec["library_ms"] = time_cuda(
-            lambda: torch.cdist(feats, centers).argmin(-1), max(2, reps // 10), 1
-        )
+        rec["ms"] = time_cuda(run, reps)
+        rec["plain_ms"] = time_cuda(plain, max(2, reps // 10), 1)
+        if expanded:
+            def library():
+                p2 = (feats * feats).sum(-1, keepdim=True)
+                c2 = torch.where(valid, (centers * centers).sum(-1), float("inf"))[:, None, :]
+                return (p2 + c2 - 2 * torch.bmm(feats, centers.transpose(1, 2))).argmin(-1)
+        else:
+            def library():
+                return torch.cdist(feats, centers).argmin(-1)
+        rec["library_ms"] = time_cuda(library, max(2, reps // 10), 1)
     return rec
+
+
+def check_log32(device, n=1 << 20):
+    """The k-means++ logarithm on the card against the CPU, bit for bit, on
+    uniforms, squared distances and nearly equal distances."""
+    import numpy as np
+    import torch
+
+    from roibasedimagecompression_torch.ops import prng
+
+    rng = np.random.default_rng(3)
+    x = np.concatenate([
+        rng.random(n // 2).astype(np.float32),
+        (rng.integers(0, 256, (n // 4, 3)).astype(np.float32) ** 2).sum(1),
+        np.float32(4321.0) * (1 + rng.integers(-64, 64, n - n // 2 - n // 4) * np.float32(2.0**-23)),
+    ]).astype(np.float32) + np.float32(1e-20)
+    got = prng.log32(torch.from_numpy(x).to(device)).cpu().numpy()
+    want = prng.log32(x)
+    n_diff = int((got.view(np.int32) != want.view(np.int32)).sum())
+    check(n_diff == 0, f"log32 on the card differs from the CPU in {n_diff} of {len(x)} values")
+    return len(x)
 
 
 def eps_inputs(device, b, n, seed=0):
@@ -492,6 +547,7 @@ def reset_counts() -> None:
 
     timing.reset_stages()
     SA.launches = EPS.launches = EPS.sweep_launches = EPS.rounds = 0
+    SA.launches_by_form.clear()
     SA.launch_shapes.clear()
     EPS.loop_shapes.clear()
 
@@ -503,10 +559,11 @@ def read_counts():
 
     launched_shapes["slic_assign"].update(SA.launch_shapes)
     launched_shapes["eps_components"].update(EPS.loop_shapes)
-    launches = {"slic_assign": SA.launches, "eps_components": EPS.launches,
+    launches = {"slic_assign": SA.launches, "slic_assign_expanded": SA.launches_by_form["expanded"],
+                "slic_assign_direct": SA.launches_by_form["direct"], "eps_components": EPS.launches,
                 "eps_sweep_alone": EPS.sweep_launches, "eps_rounds": EPS.rounds}
     shapes = {
-        "slic_assign (B, MP, K)": {str(k): v for k, v in sorted(SA.launch_shapes.items())},
+        "slic_assign (form, B, MP, K)": {str(k): v for k, v in sorted(SA.launch_shapes.items())},
         "eps loop (B, N)": {str(k): v for k, v in sorted(EPS.loop_shapes.items())},
     }
     return launches, shapes
@@ -874,6 +931,64 @@ def run_cli(device, images, datas, compare_cpu=True):
     return out
 
 
+def run_canvas(device, images, datas, batch, batch_datas, n_cpu=1):
+    """The canvas tiers path: `encode` of `images` and `encode_many` of
+    `batch` under RHCCQ_CANVAS_TIERS=1 (their bytes must equal the composed
+    path's, `datas` and `batch_datas`), then both at fill_black_holes=10 with
+    the first `n_cpu` images held to the CPU encode; then one `encode` under
+    RHCCQ_SLIC_PALLAS=1 against the CPU.  Counts and stage seconds are read
+    around each run."""
+    import roibasedimagecompression_torch as rtt
+    from roibasedimagecompression_torch import config as cfg
+    from roibasedimagecompression_torch.parallel import stream as STREAM
+    from roibasedimagecompression_torch.utils import timing
+
+    def counted(label, fn):
+        reset_counts()
+        t0 = time.perf_counter()
+        value = fn()
+        seconds = time.perf_counter() - t0
+        launches, shapes = read_counts()
+        for name in ("slic_assign", "eps_components"):
+            check(device.type != "cuda" or launches[name] > 0, f"the canvas run {label} launched {name} no time")
+        runs[label] = {"seconds": seconds, "launches": launches, "shapes": shapes,
+                       "stages": {k: v["seconds"] for k, v in timing.stage_report().items()}}
+        return value
+
+    runs = {}
+    fill = cfg.CodecConfig(fill_black_holes=10)
+    os.environ["RHCCQ_CANVAS_TIERS"] = "1"
+    try:
+        got = counted("encode, RHCCQ_CANVAS_TIERS=1", lambda: [rtt.encode(im, device=device) for im in images])
+        check(got == datas, "encode under RHCCQ_CANVAS_TIERS=1 differs from the composed path")
+        got = counted("encode_many, RHCCQ_CANVAS_TIERS=1", lambda: STREAM.encode_many(batch, None, device))
+        check(got == batch_datas, "encode_many under RHCCQ_CANVAS_TIERS=1 differs from the composed path")
+    finally:
+        del os.environ["RHCCQ_CANVAS_TIERS"]
+    filled = counted("encode, fill_black_holes=10",
+                     lambda: [rtt.encode(im, fill, device=device) for im in images])
+    filled_many = counted("encode_many, fill_black_holes=10", lambda: STREAM.encode_many(batch, fill, device))
+    # `images` are the first images of `batch` (seeds 100 and 101).
+    check(filled_many[: len(images)] == filled, "encode_many and encode disagree at fill_black_holes=10")
+    results = decode_and_score(images, filled, device) + decode_and_score(batch, filled_many, device)
+    if device.type == "cuda":
+        refs = [rtt.encode(im, fill, device="cpu") for im in images[:n_cpu]]
+        compare_with_cpu(results, images[:n_cpu], filled, refs, fill, device)
+    os.environ["RHCCQ_SLIC_PALLAS"] = "1"
+    try:
+        direct = counted("encode, RHCCQ_SLIC_PALLAS=1", lambda: rtt.encode(images[0], device=device))
+        check(device.type != "cuda" or runs["encode, RHCCQ_SLIC_PALLAS=1"]["launches"]["slic_assign_direct"] > 0,
+              "the encode under RHCCQ_SLIC_PALLAS=1 did not launch kernel 1's direct form")
+        if device.type == "cuda":
+            ref = rtt.encode(images[0], device="cpu")
+            r = [{"psnr_db": psnr(images[0], rtt.decode(direct))}]
+            compare_with_cpu(r, images[:1], [direct], [ref], cfg.CodecConfig(), device)
+            runs["encode, RHCCQ_SLIC_PALLAS=1"]["bytes_equal_cpu"] = r[0]["bytes_equal_cpu"]
+    finally:
+        del os.environ["RHCCQ_SLIC_PALLAS"]
+    return {"runs": runs, "results": results}
+
+
 def device_idle_share(fn) -> dict:
     """Run `fn` inside one profiler window and return the window's length on
     the host clock, the time in which at least one kernel or copy ran on the
@@ -950,11 +1065,15 @@ def main() -> int:
 
     print(f"[time] phase 2 ended at {time.perf_counter() - t_script:.1f} s")
     # -- 3. kernel 1 -------------------------------------------------------------
-    k1 = [check_slic_assign(device, *shape) for shape in SLIC_PATH_SHAPES + (SLIC_WIDEST_SHAPE,)]
+    k1 = [check_slic_assign(device, form, *shape) for form in SLIC_FORMS
+          for shape in SLIC_PATH_SHAPES + (SLIC_WIDEST_SHAPE,)]
     for r in k1:
-        print(f"[slic_assign] B,MP,K={r['shape']}: ids equal; kernel {r['ms']:.3f} ms, "
-              f"plain {r['plain_ms']:.3f} ms, cdist+argmin {r['library_ms']:.3f} ms, "
+        library = "bmm expanded+argmin" if r["form"] == "expanded" else "cdist+argmin"
+        print(f"[slic_assign {r['form']}] B,MP,K={r['shape']}: ids equal "
+              f"({r['ids_differing']} within an ulp); kernel {r['ms']:.3f} ms, "
+              f"plain {r['plain_ms']:.3f} ms, {library} {r['library_ms']:.3f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
+    print(f"[log32] {check_log32(device)} values: the card's log32 equals the CPU's bit for bit")
 
     print(f"[time] phase 3 ended at {time.perf_counter() - t_script:.1f} s")
     # -- 4. kernel 2 -------------------------------------------------------------
@@ -987,7 +1106,7 @@ def main() -> int:
     print(f"[time] phase 4 ended at {time.perf_counter() - t_script:.1f} s")
     # -- 5. one image at a time ---------------------------------------------------
     results, launches_one, shapes, stages, idle, images_one, datas_one = run_end_to_end(device)
-    for name in ("slic_assign", "eps_components", "eps_rounds"):
+    for name in ("slic_assign_expanded", "eps_components", "eps_rounds"):
         check(launches_one[name] > 0, f"the one-image path launched {name} no time")
     print(f"[e2e] launches over {len(results)} encodes: {launches_one}")
     for name, hist in shapes.items():
@@ -1019,7 +1138,7 @@ def main() -> int:
     runs = {}
     for label, config in (("default", cfg.CodecConfig()), ("low_latency", cfg.CodecConfig.low_latency())):
         br = runs[label] = run_batch(device, batches[0], config, profile=label == "default")
-        for name in ("slic_assign", "eps_components", "eps_rounds"):
+        for name in ("slic_assign_expanded", "eps_components", "eps_rounds"):
             check(br["launches"][name] > 0, f"the batch path ({label}) launched {name} no time")
         print(f"[batch {label}] encode_many of 8 x 768x512: {br['seconds']:.3f} s warm, "
               f"{br['images_per_second']:.3f} images/s; bytes equal with RHCCQ_DEVICE_PAIRS=0 [{card}]")
@@ -1068,55 +1187,85 @@ def main() -> int:
         print(f"[cli] seconds, {name}: {secs:.3f} [{card}]")
     print(f"[cli] phase seconds: {t_cli:.1f}")
     launches_cli = {name: sum(rec["launches"][name] for rec in cr["options"].values())
-                    for name in ("slic_assign", "eps_components", "eps_sweep_alone", "eps_rounds")}
+                    for name in ("slic_assign", "slic_assign_expanded", "slic_assign_direct",
+                                 "eps_components", "eps_sweep_alone", "eps_rounds")}
 
     print(f"[time] phase 9 ended at {time.perf_counter() - t_script:.1f} s")
-    # -- 10. cover ------------------------------------------------------------------
+    # -- 10. canvas -----------------------------------------------------------------
+    t_canvas = time.perf_counter()
+    cv = run_canvas(device, images_one, datas_one, batches[0][:4], runs["default"]["datas"][:4])
+    for label, rec in cv["runs"].items():
+        print(f"[canvas] {label}: {rec['seconds']:.3f} s; launches {rec['launches']} [{card}]")
+        for name, hist in rec["shapes"].items():
+            print(f"[canvas] {label} launch shapes, {name}: {json.dumps(hist)}")
+        print(f"[canvas] {label} stages: {json.dumps({k: round(v, 4) for k, v in rec['stages'].items()})} [{card}]")
+    print("[canvas] RHCCQ_CANVAS_TIERS=1: encode (2 images) and encode_many (4) byte-equal to the composed path; "
+          f"fill_black_holes=10: {json.dumps(cv['results'])}; RHCCQ_SLIC_PALLAS=1 encode "
+          f"{'equal to' if cv['runs']['encode, RHCCQ_SLIC_PALLAS=1'].get('bytes_equal_cpu') else 'within the rule of'} "
+          f"the CPU [{card}]")
+    print(f"[canvas] phase seconds: {time.perf_counter() - t_canvas:.1f}")
+    launches_canvas = {name: sum(rec["launches"][name] for rec in cv["runs"].values())
+                       for name in launches_cli}
+
+    print(f"[time] phase 10 ended at {time.perf_counter() - t_script:.1f} s")
+    # -- 11. cover ------------------------------------------------------------------
     # Whatever shape a path launched a kernel at, beyond those of phases 3 and
     # 4, is held against the plain version here.
-    more = sorted(launched_shapes["slic_assign"] - {tuple(r["shape"]) for r in k1})
-    k1 += [check_slic_assign(device, *shape) for shape in more]
+    def slic_key(r):
+        return (r["form"], *r["shape"])
+
+    more = sorted(launched_shapes["slic_assign"] - {slic_key(r) for r in k1})
+    k1 += [check_slic_assign(device, *key) for key in more]
     more_eps = sorted(launched_shapes["eps_components"] - {tuple(r["shape"]) for r in k2_packed})
     for r in check_eps_packed(device, more_eps, count_calls=False):  # phase 4 counted one call's kernels
         report_loop(r)
         k2_packed.append(r)
     for r in k1:
-        r["on_path"] = tuple(r["shape"]) in launched_shapes["slic_assign"]
+        r["on_path"] = slic_key(r) in launched_shapes["slic_assign"]
     for r in k2_packed:
         r["on_path"] = tuple(r["shape"]) in launched_shapes["eps_components"]
     print(f"[cover] slic_assign also checked at {more}, the packed eps loop at {more_eps}: every "
-          f"shape the four paths launched ({len(launched_shapes['slic_assign'])} and "
+          f"shape the five paths launched ({len(launched_shapes['slic_assign'])} and "
           f"{len(launched_shapes['eps_components'])}) is held against the plain version; checked "
-          f"but launched by no path: slic_assign {[r['shape'] for r in k1 if not r['on_path']]}, "
+          f"but launched by no path: slic_assign {[slic_key(r) for r in k1 if not r['on_path']]}, "
           f"packed eps loop {[r['shape'] for r in k2_packed if not r['on_path']]}")
 
-    print(f"[time] phase 10 ended at {time.perf_counter() - t_script:.1f} s")
-    # -- 11. kernels line ------------------------------------------------------------
+    print(f"[time] phase 11 ended at {time.perf_counter() - t_script:.1f} s")
+    # -- 12. kernels line ------------------------------------------------------------
     # `launches` count the main paths, each read around its own run from 0:
     # the one-image encodes of phase 5, the warm encode_many at CodecConfig()
-    # of phase 7 and the in-process CLI encodes of phase 9; the stream's are
-    # beside them.
+    # of phase 7, the in-process CLI encodes of phase 9 and the canvas runs of
+    # phase 10 (kernel 1's direct form runs in its RHCCQ_SLIC_PALLAS=1
+    # encode); the stream's are beside them.
     def launches_of(name):
-        return {"launches": launches_one[name] + launches_batch[name] + launches_cli[name],
+        return {"launches": launches_one[name] + launches_batch[name] + launches_cli[name]
+                + launches_canvas[name],
                 "launches_one_image": launches_one[name], "launches_batch": launches_batch[name],
-                "launches_cli": launches_cli[name], "launches_stream": sr["launches"][name]}
+                "launches_cli": launches_cli[name], "launches_canvas": launches_canvas[name],
+                "launches_stream": sr["launches"][name]}
 
     # The headline numbers of each entry are those of the largest shape a path
     # launched it at (by pixels, B * MP, and by pairs, B * N * N): (8, 221184,
     # 64) and (48, 9999) on the smoke's images; `per_shape` has every shape
     # checked.
     big = k2[-1]
-    big_slic = max((r for r in k1 if r["on_path"]), key=lambda r: r["shape"][0] * r["shape"][1])
     big_packed = max((r for r in k2_packed if r["on_path"]),
                      key=lambda r: r["shape"][0] * r["shape"][1] ** 2)
+
+    def slic_entry(form):
+        rows = [r for r in k1 if r["form"] == form]
+        head = max((r for r in rows if r["on_path"]), key=lambda r: r["shape"][0] * r["shape"][1])
+        return ({k: head[k] for k in ("name", "route", "source", "replaces", "form")}
+                | launches_of(f"slic_assign_{form}")
+                | {"max_abs_err": max(r["max_abs_err"] for r in rows), "shape": head["shape"],
+                   "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                   "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+                   "per_shape": [{k: r[k] for k in ("shape", "on_path", "ms", "plain_ms", "bound_ms",
+                                                    "library_ms")} for r in rows]})
+
     kernels = [
-        {k: big_slic[k] for k in ("name", "route", "source", "replaces")}
-        | launches_of("slic_assign")
-        | {"max_abs_err": max(r["max_abs_err"] for r in k1), "shape": big_slic["shape"],
-           "ms": big_slic["ms"], "plain_ms": big_slic["plain_ms"], "bound_ms": big_slic["bound_ms"],
-           "bound_by": big_slic["bound_by"], "library_ms": big_slic["library_ms"],
-           "per_shape": [{k: r[k] for k in ("shape", "on_path", "ms", "plain_ms", "bound_ms", "library_ms")}
-                         for r in k1]},
+        slic_entry("expanded"),
+        slic_entry("direct"),
         {"name": "eps_sweep", "route": "cuda",
          "source": "roibasedimagecompression_torch/csrc/epscc.cu",
          "replaces": "roibasedimagecompression_tpu/ops/pallas/epscc.py:33"}

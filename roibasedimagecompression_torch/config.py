@@ -120,8 +120,8 @@ class CodecConfig:
     """Top-level codec configuration (quality preset + pipeline switches).
 
     Field meanings are those of the JAX package's CodecConfig.  This port runs
-    the default batched path, with every split method; `batched=False`,
-    `region_fusion`, `fill_black_holes > 0` and `weighted_split` raise
+    the batched path, with every split method and `fill_black_holes`;
+    `batched=False`, `region_fusion` and `weighted_split` raise
     NotImplementedError in `encode`.
     """
 

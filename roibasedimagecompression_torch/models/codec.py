@@ -5,18 +5,28 @@ Pipeline of the batched path (the JAX package's `encode_batched`):
   and SLIC per region on the device -> tier-1 pair table, eps-CC and
   oversized splits -> tiers 2/3 composed on the cluster table, palette
   refinement and refit -> DEFLATE container.
+
+The canvas tiers path (`fill_black_holes > 0`, an image without segments, or
+RHCCQ_CANVAS_TIERS=1) paints tier 1 onto a canvas and clusters tiers 2 and 3
+as colour maps (`tiers23_colors_many`), so the holes of the tier-2 canvas can
+be filled before tier 3; without holes to fill it writes the same bytes as
+the composed path.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
 from roibasedimagecompression_torch import config as cfg
 from roibasedimagecompression_torch import native
 from roibasedimagecompression_torch.io import container as C
+from roibasedimagecompression_torch.models import holes as HOLES
 from roibasedimagecompression_torch.models import quantize_batched as QB
 from roibasedimagecompression_torch.models import refine as RF
 from roibasedimagecompression_torch.models import segment as SEG
+from roibasedimagecompression_torch.ops import unique as U
 from roibasedimagecompression_torch.utils import device as DEV
 from roibasedimagecompression_torch.utils.timing import stage_timer
 
@@ -312,6 +322,67 @@ def tiers23_palette_indices(
     return out
 
 
+def tiers23_colors_many(t1_list: list, group_map_list: list, config: cfg.CodecConfig,
+                        device) -> tuple:
+    """Tier-2 and tier-3 colour maps of a batch of tier-1 canvases, in two
+    pooled `cluster_color_maps_many` calls: tier 2 one problem per (image,
+    group), then the optional black-hole fill, then tier 3 one problem per
+    image.  Returns (t2_list, t3_list) of (h, w, 3) uint8 colour maps."""
+    kw = dict(seed=config.seed, weighted=config.weighted_palette,
+              split_method=config.split_method, split_margin=config.split_margin)
+    colors_in, sels, quals, owner = [], [], [], []
+    for k, (t1, gm) in enumerate(zip(t1_list, group_map_list)):
+        for g, q2 in ((1, config.roi_tier2_quality), (2, config.nonroi_tier2_quality)):
+            sel = gm == g
+            if sel.any():
+                colors_in.append(t1)
+                sels.append(sel)
+                quals.append(q2)
+                owner.append(k)
+    t2_list = [np.zeros_like(t1) for t1 in t1_list]
+    if colors_in:
+        QB.cluster_color_maps_many(colors_in, sels, quals, [t2_list[k] for k in owner], device, **kw)
+
+    if config.fill_black_holes > 0:
+        t2_list = [HOLES.fill_black_holes(t2, config.fill_black_holes) for t2 in t2_list]
+
+    colors_in, sels, owner = [], [], []
+    for k, (t2, gm) in enumerate(zip(t2_list, group_map_list)):
+        sel = gm > 0
+        if config.fill_black_holes > 0:
+            # Filled pixels join tier 3 even outside every region.
+            sel = sel | (t2 != 0).any(axis=-1)
+        if sel.any():
+            colors_in.append(t2)
+            sels.append(sel)
+            owner.append(k)
+    t3_list = [np.zeros_like(t2) for t2 in t2_list]
+    if colors_in:
+        QB.cluster_color_maps_many(
+            colors_in, sels, [config.image_quality] * len(colors_in), [t3_list[k] for k in owner],
+            device, **kw,
+        )
+    return t2_list, t3_list
+
+
+def canvas_palette_indices(t3: np.ndarray, t1: np.ndarray, config: cfg.CodecConfig):
+    """Final palette and index map of a tier-3 canvas (its unique colours),
+    refined on the tier-1 canvas where the config refines."""
+    h, w = t3.shape[:2]
+    palette, indices = U.unique_colors(t3.reshape(-1, 3))
+    indices = indices.reshape(h, w)
+    iters = RF.effective_iters(config)
+    if iters > 0:
+        palette, indices = RF.refine_canvas(t1, palette, iters)
+    return palette, indices
+
+
+def canvas_tiers(config: cfg.CodecConfig) -> bool:
+    """Whether tiers 2/3 run on canvases: fill_black_holes edits the tier-2
+    canvas; RHCCQ_CANVAS_TIERS=1 asks for the path outright."""
+    return config.fill_black_holes > 0 or os.environ.get("RHCCQ_CANVAS_TIERS") == "1"
+
+
 def _coerce_rgb(image: np.ndarray) -> np.ndarray:
     """Accept (h, w), (h, w, 1), (h, w, 3) or (h, w, 4) uint8 input."""
     image = np.asarray(image, dtype=np.uint8)
@@ -327,16 +398,15 @@ def _coerce_rgb(image: np.ndarray) -> np.ndarray:
 
 
 _UNPORTED = {
-    "region_fusion": "ROADMAP A12 (region fusion)",
-    "fill_black_holes": "ROADMAP A12 (fill_black_holes and the canvas tiers path)",
-    "weighted_split": "ROADMAP A12 (weighted_split)",
+    "region_fusion": "ROADMAP A12c (region fusion)",
+    "weighted_split": "ROADMAP A12c (weighted_split)",
 }
 
 
 def _check_ported(config: cfg.CodecConfig) -> None:
     if not config.batched:
         raise NotImplementedError(
-            "batched=False (the reference-shaped loop) is not ported yet: ROADMAP A12"
+            "batched=False (the reference-shaped loop) is not ported yet: ROADMAP A12b"
         )
     for field, item in _UNPORTED.items():
         if getattr(config, field):
@@ -382,10 +452,14 @@ def encode_batched(image_rgb: np.ndarray, config: cfg.CodecConfig, device) -> by
         )
 
     with stage_timer("tier23"):
-        if table is None:
-            # All-background image: one black entry.
-            palette = np.zeros((1, 3), np.uint8)
-            indices = np.zeros((h, w), np.uint8)
+        if table is None or canvas_tiers(config):
+            # Canvas path: hole filling edits the tier-2 canvas; an empty
+            # table means an image without segments.
+            t1 = np.zeros_like(image_rgb)
+            if table is not None:
+                QB.paint_table(table, t1)
+            _, (t3,) = tiers23_colors_many([t1], [seg_group[seg_map]], config, device)
+            palette, indices = canvas_palette_indices(t3, t1, config)
         else:
             image_of_seg = np.zeros(len(seg_quality), np.int32)
             ((palette, indices),) = tiers23_palette_indices(

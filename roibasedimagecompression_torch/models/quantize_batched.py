@@ -16,6 +16,8 @@ as torch ops on the caller's device.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -27,7 +29,19 @@ from roibasedimagecompression_torch.utils.timing import stage_timer
 
 _BUCKETS = (64, 256, 1024, 4096, 9999)  # eps-CC caps (>=10k goes to k-means)
 _SPLIT_CAPS = (64, 256, 1024, 4096, 16384, 65536)
-_HYBRID_CUTOFF = 64
+_HYBRID_CUTOFF = 64  # RHCCQ_HYBRID_CUTOFF overrides it
+
+
+def _check_weighted_split() -> None:
+    """RHCCQ_WEIGHTED_SPLIT, parsed as the JAX package parses it (unset: the
+    config's flag, which the codec has already refused; "" or "0": off;
+    anything else: on).  The weighted split is not ported, so "on" raises."""
+    env = os.environ.get("RHCCQ_WEIGHTED_SPLIT")
+    if env is not None and env not in ("", "0"):
+        raise NotImplementedError(
+            f"RHCCQ_WEIGHTED_SPLIT={env!r} turns on the weighted split, which is not "
+            "ported yet: ROADMAP A12c (weighted_split)"
+        )
 
 
 def _unique_inverse(keys: np.ndarray, return_counts: bool = False):
@@ -245,6 +259,7 @@ def tier1_table(
 
     pair_weights = counts.astype(np.float64)
 
+    _check_weighted_split()
     with stage_timer("t1.split"):
         pair_max_colors = np.repeat(max_colors, sizes)
         cluster_of_pair, next_cluster = _split_oversized_batched(
@@ -268,6 +283,83 @@ def tier1_table(
         "device_pairs": device_pairs,
         "repair_remap": repair_remap,
     }
+
+
+def tier1_colors(
+    image_rgb: np.ndarray,
+    seg_map: np.ndarray,
+    seg_quality: np.ndarray,
+    device,
+    *,
+    seed: int = 42,
+    weighted: bool = True,
+    split_method: str = "kmeans",
+    split_margin: float = 1.0,
+) -> np.ndarray:
+    """Per-pixel tier-1 colours: (h, w, 3) uint8, black where seg_map == 0
+    (the tier-1 table painted onto a canvas)."""
+    table = tier1_table(
+        image_rgb, seg_map, seg_quality, device, seed=seed, weighted=weighted,
+        split_method=split_method, split_margin=split_margin,
+    )
+    out = np.zeros_like(np.asarray(image_rgb, np.uint8))
+    if table is not None:
+        paint_table(table, out)
+    return out
+
+
+def paint_table(table: dict, out: np.ndarray) -> None:
+    """Paint a host tier-1 table's cluster colours onto the (h, w, 3) uint8
+    canvas `out` at its masked pixels."""
+    native.paint_masked_colors(
+        table["cluster_colors"], table["cluster_of_pair"], table["inverse"], table["mask"], out
+    )
+
+
+def cluster_color_maps_many(
+    colors_list: list,
+    sel_list: list,
+    quality_list: list,
+    out_list: list,
+    device,
+    *,
+    seed: int = 42,
+    weighted: bool = True,
+    split_method: str = "kmeans",
+    split_margin: float = 1.0,
+) -> list:
+    """Tier-2/3 colour-map clustering of many problems in one pooled table.
+
+    Problem i is (colors_list[i] (h, w, 3) uint8, sel_list[i] (h, w) bool,
+    quality_list[i]): the palette of colors[sel] is clustered with black
+    pinned (`cluster_pair_table`), and the mapped colours are painted into
+    out_list[i] ((h, w, 3) uint8; an entry may repeat when problems share a
+    canvas) at the sel pixels.  Returns out_list.
+    """
+    n_prob = len(colors_list)
+    if not len(sel_list) == len(quality_list) == len(out_list) == n_prob:
+        raise ValueError("colors_list, sel_list, quality_list and out_list differ in length")
+    with stage_timer("t23.pairs"):
+        keys = np.empty(sum(int(np.prod(np.shape(sel))) for sel in sel_list), np.int64)
+        pixel_counts = []
+        off = 0
+        for i in range(n_prob):
+            n = native.pack_sel_keys(colors_list[i], sel_list[i], i, keys, off)
+            pixel_counts.append(n)
+            off += n
+        if off == 0:
+            return out_list
+        uniq, inverse, pair_pixel_counts = _unique_inverse(keys[:off], return_counts=True)
+
+    pair_colors = cluster_pair_table(
+        uniq, pair_pixel_counts, quality_list, device, seed=seed,
+        split_method=split_method, split_margin=split_margin, weighted=weighted,
+    )
+    off = 0
+    for i, cnt in enumerate(pixel_counts):
+        native.paint_masked_colors(pair_colors, None, inverse[off : off + cnt], sel_list[i], out_list[i])
+        off += cnt
+    return out_list
 
 
 def cluster_pair_table(
@@ -347,6 +439,7 @@ def cluster_pair_table(
         _, cluster_of_pair = _unique_inverse(cluster_keys)
         next_cluster = int(cluster_of_pair.max()) + 1
 
+    _check_weighted_split()
     with stage_timer("t23.split"):
         pair_limits = np.repeat(max_colors, sizes)
         cluster_of_pair, next_cluster = _split_oversized_batched(
@@ -498,7 +591,14 @@ def _split_oversized_batched(colors, cluster_of_pair, pair_max_colors,
     `colors_dev_pre` is that table where it is there already (the device pair
     table's post-repair colors, any integer or float dtype, at least
     len(colors) rows).
+
+    The JAX package's overrides from the environment are read here, where it
+    reads them: RHCCQ_SPLIT_METHOD replaces `method`; RHCCQ_HYBRID_CUTOFF the
+    hybrid cutoff (64); the hybrid cuts' margin is RHCCQ_HYBRID_MARGIN, else
+    RHCCQ_SPLIT_MARGIN, else `margin`; the k-means margin RHCCQ_SPLIT_MARGIN,
+    else `margin`.
     """
+    method = os.environ.get("RHCCQ_SPLIT_METHOD") or method
     if method == "mediancut":
         with stage_timer("split.lum"):
             return _split_oversized_mediancut(colors, cluster_of_pair, pair_max_colors, next_cluster)
@@ -524,16 +624,23 @@ def _split_oversized_batched(colors, cluster_of_pair, pair_max_colors,
         key_base = np.int64(next_cluster)
 
         if method == "hybrid":
-            tiny = oversized[sizes[oversized] <= _HYBRID_CUTOFF]
+            cutoff = int(os.environ.get("RHCCQ_HYBRID_CUTOFF") or _HYBRID_CUTOFF)
+            m_h = float(
+                os.environ.get("RHCCQ_HYBRID_MARGIN")
+                or os.environ.get("RHCCQ_SPLIT_MARGIN")
+                or margin
+            )
+            tiny = oversized[sizes[oversized] <= cutoff]
             if len(tiny):
                 flat_pos_t, _, _ = native.flat_run_positions(starts[tiny], sizes[tiny])
                 tiny_pos = order[flat_pos_t]
-                n_cuts = max(12, _HYBRID_CUTOFF.bit_length() + 2)
+                # Sizes halve per cut: log2(cutoff) + 2 rounds reach the limit.
+                n_cuts = max(12, cutoff.bit_length() + 2)
                 for _cut in range(n_cuts):
                     o_t = tiny_pos[native.argsort_i64(cluster_of_pair[tiny_pos])]
                     _, st_t, sz_t = _runs_of_sorted(cluster_of_pair[o_t])
                     lim_t = np.maximum(
-                        1, -(-pair_max_colors[o_t[st_t]] // max(margin, 1.0))
+                        1, -(-pair_max_colors[o_t[st_t]] // max(m_h, 1.0))
                     ).astype(np.int64)
                     ov_t = np.flatnonzero((sz_t > lim_t) & (sz_t > 2))
                     if len(ov_t) == 0:
@@ -545,7 +652,7 @@ def _split_oversized_batched(colors, cluster_of_pair, pair_max_colors,
                     cluster_of_pair[pos2] = key_base + row2 * 2 + child
                     key_base += np.int64(2 * len(ov_t))
                     tiny_pos = pos2
-                oversized = oversized[sizes[oversized] > _HYBRID_CUTOFF]
+                oversized = oversized[sizes[oversized] > cutoff]
                 if len(oversized) == 0:
                     next_cluster = int(key_base)
                     active = np.empty(0, np.int64)
@@ -554,7 +661,8 @@ def _split_oversized_batched(colors, cluster_of_pair, pair_max_colors,
         # n_splits law: min(max(2, ceil(n*margin/max)), n).
         n = sizes[oversized]
         lim = np.maximum(limits[oversized], 1)
-        ks = np.minimum(np.maximum(2, -(-(n * float(margin)).astype(np.int64) // lim)), n)
+        m_eff = float(os.environ.get("RHCCQ_SPLIT_MARGIN") or margin)
+        ks = np.minimum(np.maximum(2, -(-(n * m_eff).astype(np.int64) // lim)), n)
 
         inits = None
         if method == "kmeans-mc":

@@ -51,6 +51,8 @@ _SIGNATURES = {
     "split_pair_uniq": (None, [_P, _I64, _P, _P, _P]),
     "cluster_means_u8": (None, [_P, _P, _P, _I64, _I64, _P]),
     "paint_masked_indices": (None, [_P, _P, _P, _I64, _I32, _P]),
+    "paint_masked_colors": (None, [_P, _P, _P, _P, _I64, _P]),
+    "pack_sel": (_I64, [_P, _P, _I64, _I64, _P]),
     "epscc_grid_labels": (None, [_P, _P, _P, _P, _I64, _P]),
     "runs_of_sorted_i64": (_I64, [_P, _I64, _P, _P]),
     "flat_run_positions": (None, [_P, _P, _I64, _P, _P, _P]),
@@ -326,6 +328,32 @@ def paint_masked_indices(idx_of_pair, inverse, mask, out: np.ndarray) -> None:
     get_lib().paint_masked_indices(
         _ptr(idx), _ptr(inv), _ptr(m), m.size, out.dtype.itemsize, _ptr(out)
     )
+
+
+def paint_masked_colors(table: np.ndarray, idx1, inverse: np.ndarray,
+                        mask: np.ndarray, out: np.ndarray) -> None:
+    """out[mask] = table[idx1[inverse]] (or table[inverse] when idx1 is None)
+    in row-major mask order, in place, into an (..., 3) uint8 canvas."""
+    t = np.ascontiguousarray(table, dtype=np.uint8)
+    inv = np.ascontiguousarray(inverse, dtype=np.int64)
+    m = np.ascontiguousarray(mask != 0, dtype=np.uint8).reshape(-1)
+    if out.dtype != np.uint8 or not out.flags.c_contiguous or out.size != m.size * 3:
+        raise ValueError("paint_masked_colors needs a contiguous uint8 (..., 3) canvas of the mask's size")
+    i1 = None if idx1 is None else np.ascontiguousarray(idx1, dtype=np.int64)
+    get_lib().paint_masked_colors(
+        _ptr(t), None if i1 is None else _ptr(i1), _ptr(inv), _ptr(m), m.size, _ptr(out)
+    )
+
+
+def pack_sel_keys(colors: np.ndarray, sel: np.ndarray, tag: int,
+                  out: np.ndarray, offset: int) -> int:
+    """Write tag << 24 | rgb keys of the sel pixels into out[offset:], in
+    row-major order; returns the number written."""
+    c = np.ascontiguousarray(colors, dtype=np.uint8).reshape(-1, 3)
+    s = np.ascontiguousarray(sel, dtype=np.uint8).reshape(-1)
+    if out.dtype != np.int64 or not out.flags.c_contiguous or out.size - offset < int(s.sum()):
+        raise ValueError("pack_sel_keys needs a contiguous int64 buffer with room for every sel pixel")
+    return int(get_lib().pack_sel(_ptr(c), _ptr(s), s.size, int(tag), _ptr(out) + offset * 8))
 
 
 def epscc_labels_runs(colors_packed, starts, sizes, eps) -> np.ndarray:

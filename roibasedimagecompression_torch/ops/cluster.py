@@ -21,6 +21,15 @@ from roibasedimagecompression_torch.ops.colors import fma32
 from roibasedimagecompression_torch.ops.cuda import epscc as EPS
 
 _BIG = 3.4e38
+_MAX_D2 = 3 * 255 * 255  # the largest squared distance of two uint8 colours
+
+
+@functools.lru_cache(maxsize=8)
+def _log32_table(device: torch.device) -> torch.Tensor:
+    """XLA's float32 log (prng.log32) of every squared distance two uint8
+    colours can have: the k-means++ logits of integer colours in one gather
+    instead of the logarithm's several dozen elementwise steps."""
+    return prng.log32(torch.arange(_MAX_D2 + 1, dtype=torch.float32, device=device))
 
 
 def eps_components(points, eps, valid, groups=None) -> torch.Tensor:
@@ -80,7 +89,8 @@ def kmeans_rows(
 ) -> torch.Tensor:
     """Lloyd k-means on each row of a padded batch; (B, m) int32 labels.
 
-    points (B, m, 3) float32 integer colours; valid (B, m) bool; k (B,) the
+    points (B, m, 3) float32 integer colours in [0, 255] (the k-means++
+    logits are read from a table of squared distances); valid (B, m) bool; k (B,) the
     per-row cluster count (<= k_max).  Every row draws from the same key
     sequence (the JAX kernel is vmapped with a static seed), so one noise
     vector per k-means++ step serves the whole batch.  init_centers (B,
@@ -100,6 +110,9 @@ def kmeans_rows(
         centers = init_centers.to(device=dev, dtype=torch.float32)
     elif plusplus:
         n_draws = max(int(kvec.max()), 1)
+        # Squared distances of integer colours are integers <= _MAX_D2, and
+        # adding 1e-20 to one of them leaves it as it is.
+        log_d2 = _log32_table(dev)
         noise = torch.tensor(_gumbel_table(int(seed), m, n_draws), device=dev)
         first_logits = torch.where(valid, torch.zeros((), device=dev), neg_inf)
         first = torch.argmax(noise[0][None, :] + first_logits, dim=1)
@@ -109,7 +122,7 @@ def kmeans_rows(
         min_d2 = torch.where(valid, min_d2, torch.zeros((), device=dev))
         for i in range(1, n_draws):
             g = noise[i]
-            logits = torch.where(valid & (min_d2 > 0), torch.log(min_d2 + 1e-20), neg_inf)
+            logits = torch.where(valid & (min_d2 > 0), log_d2[min_d2.long()], neg_inf)
             has = torch.isfinite(logits).any(dim=1, keepdim=True)
             logits = torch.where(
                 has, logits, torch.where(valid, torch.zeros((), device=dev), neg_inf)

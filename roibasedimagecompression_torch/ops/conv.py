@@ -60,12 +60,25 @@ def gaussian_kernel1d(sigma: float, truncate: float = 4.0) -> np.ndarray:
     return k / k.sum()
 
 
+def _taps9_xla(x: torch.Tensor, axis: int, weights) -> torch.Tensor:
+    """A 9-tap correlation along `axis` (reflect borders, same size) added as
+    XLA's CPU convolution adds it: products rounded, then ((t0 + t1) + (t4 +
+    t5)) + ((t2 + t3) + (t6 + t7)), then + t8."""
+    n = x.shape[axis]
+    p = _pad_axis(x, axis, 4, 4)
+    t = [p.narrow(axis, i, n) * float(w) for i, w in enumerate(weights)]
+    return (((t[0] + t[1]) + (t[4] + t[5])) + ((t[2] + t[3]) + (t[6] + t[7]))) + t[8]
+
+
 def gaussian_blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
     """Separable Gaussian blur of a (B, H, W, C) tensor over H and W
-    (scipy.ndimage.gaussian_filter semantics, reflect borders)."""
+    (scipy.ndimage.gaussian_filter semantics, reflect borders).  The 9-tap
+    kernel of sigma 1 (SLIC's) sums its taps in the JAX package's order, bit
+    for bit; other kernels in tap order."""
     x = img.float()
     if sigma <= 0:
         return x
     k = [float(v) for v in gaussian_kernel1d(sigma)]
-    return _taps(_taps(x, 1, k), 2, k)
+    taps = _taps9_xla if len(k) == 9 else _taps
+    return taps(taps(x, 1, k), 2, k)
 

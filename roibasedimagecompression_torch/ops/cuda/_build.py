@@ -28,7 +28,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel source -> {launch function: its argument types}; every launch
 # function returns a cudaError_t as an int.
 _LAUNCHERS = {
-    "slic_assign": {"slic_assign_launch": [_P, _P, _P, _I, _I, _I, _P]},
+    "slic_assign": {"slic_assign_launch": [_P, _P, _P, _I, _I, _I, _P],
+                    "slic_assign_expanded_launch": [_P, _P, _P, _P, _I, _I, _I, _P]},
     "epscc": {
         "eps_pack_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P],
         "eps_sweep_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],

@@ -16,6 +16,9 @@ bit-identical too.
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from roibasedimagecompression_torch.ops.colors import fma32
 
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -76,44 +79,42 @@ def uniform(key: np.ndarray, shape, minval: float = 0.0, maxval: float = 1.0) ->
     return np.maximum(lo, floats * (hi - lo) + lo)
 
 
-def _fma32(a, b, c) -> np.ndarray:
-    """float32 a*b + c rounded once (the product is exact in float64)."""
-    return (np.asarray(a, np.float64) * np.asarray(b, np.float64) + np.asarray(c, np.float64)).astype(np.float32)
+def _hex32(h: str) -> float:
+    return float(np.float32(float.fromhex(h)))
 
 
-def _hex32(h: str) -> np.float32:
-    return np.float32(float.fromhex(h))
-
-
-def log32(x: np.ndarray) -> np.ndarray:
-    """XLA's CPU float32 `log`, bit for bit, for positive input.
+def log32(x):
+    """XLA's CPU float32 `log`, bit for bit, for positive input: a torch
+    tensor on any device, or a numpy array (returned as numpy).
 
     XLA lowers `log` to its own polynomial (a Cephes `logf`: mantissa in
     [sqrt(1/2), sqrt(2)), a degree-8 polynomial split in three, exponent
     times ln 2 in two parts) and LLVM fuses every multiply that feeds one add
-    into a fused multiply-add.  numpy's float32 `log` differs from it in the
-    last bit for 23 % of inputs, a correctly rounded one for 14 %; this
-    follows the same operations and roundings, and equals `jnp.log` on every
-    one of 10^6 uniforms and 2 x 10^6 random normal floats.  Zero and
-    subnormal input gives -inf, as under XLA's flush-to-zero.
+    into a fused multiply-add.  torch's and numpy's float32 `log` differ from
+    it in the last bit for about a tenth to a quarter of inputs; this follows
+    the same operations and roundings (the fused multiply-adds through
+    `ops/colors.py fma32`), on the CPU and on the card.  Zero and subnormal
+    input gives -inf, as under XLA's flush-to-zero.
     """
-    x = np.asarray(x, np.float32)
-    tiny = np.finfo(np.float32).tiny
-    bits = np.maximum(x, tiny).view(np.uint32)
-    e = ((bits >> np.uint32(23)).astype(np.int32) - 126).astype(np.float32)
-    m = ((bits & np.uint32(0x807FFFFF)) | np.uint32(0x3F000000)).view(np.float32)
+    if isinstance(x, np.ndarray) or not torch.is_tensor(x):
+        return log32(torch.from_numpy(np.array(x, np.float32, ndmin=1))).numpy().reshape(np.shape(x))
+    x = x.float()
+    tiny = float(np.finfo(np.float32).tiny)
+    bits = torch.clamp(x, min=tiny).view(torch.int32)
+    e = ((bits >> 23) - 126).float()
+    m = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32)
     low = m < _hex32("0x1.6a09e6p-1")  # sqrt(1/2)
-    e = e - low.astype(np.float32)
-    t = (m - np.float32(1.0)) + np.where(low, m, np.float32(0.0))
+    e = e - low.float()
+    t = (m - 1.0) + torch.where(low, m, torch.zeros((), device=x.device))
     z = t * t
     t3 = z * t
-    q0 = _fma32(_fma32(t, _hex32("0x1.204376p-4"), _hex32("-0x1.d7a370p-4")), t, _hex32("0x1.de4a34p-4"))
-    q1 = _fma32(_fma32(t, _hex32("-0x1.fcba9ep-4"), _hex32("0x1.23d37ep-3")), t, _hex32("-0x1.555ca0p-3"))
-    q2 = _fma32(_fma32(t, _hex32("0x1.999d58p-3"), _hex32("-0x1.fffff8p-3")), t, _hex32("0x1.555554p-2"))
-    r = _fma32(_fma32(q0, t3, q1), t3, q2)
-    y = _fma32(r, t3, _hex32("-0x1.bd0106p-13") * e)
-    out = _fma32(_hex32("0x1.630000p-1"), e, _fma32(np.float32(-0.5), z, t) + y)
-    return np.where(x < tiny, np.float32(-np.inf), out)
+    q0 = fma32(fma32(t, _hex32("0x1.204376p-4"), _hex32("-0x1.d7a370p-4")), t, _hex32("0x1.de4a34p-4"))
+    q1 = fma32(fma32(t, _hex32("-0x1.fcba9ep-4"), _hex32("0x1.23d37ep-3")), t, _hex32("-0x1.555ca0p-3"))
+    q2 = fma32(fma32(t, _hex32("0x1.999d58p-3"), _hex32("-0x1.fffff8p-3")), t, _hex32("0x1.555554p-2"))
+    r = fma32(fma32(q0, t3, q1), t3, q2)
+    y = fma32(r, t3, e * _hex32("-0x1.bd0106p-13"))
+    out = fma32(_hex32("0x1.630000p-1"), e, fma32(-0.5, z, t) + y)
+    return torch.where(x < tiny, torch.full_like(out, float("-inf")), out)
 
 
 def gumbel(key: np.ndarray, shape) -> np.ndarray:

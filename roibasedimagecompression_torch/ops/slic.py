@@ -4,8 +4,20 @@ CIELAB color (blurred) plus compactness-scaled coordinates, Lloyd iterations
 with early exit, then connectivity enforcement on the host runtime.  Regions
 are grouped by padded shape; each bucket runs one batched core call.  The
 assign step is the hand-written kernel `ops/cuda/slic_assign.py` (its plain
-version on the CPU), with the JAX package's Pallas-mode semantics: direct
-differences, a 2048-pixel padding grid and the 1e6 invalid-centre sentinel.
+version on the CPU) in the distance form the JAX package picks, read per
+call from `RHCCQ_SLIC_PALLAS` as the JAX package reads it: "1" gives the
+Pallas kernel's direct differences (invalid centres carry the 1e6 sentinel),
+anything else, or nothing, the default expanded form |p|^2 + |c|^2 - 2 p.c
+(invalid centres masked).  Pixels are padded to a 2048 grid in both forms;
+padding is outside the mask, so it changes no id and no centre.
+
+The features (Lab, the 9-tap blur) are the JAX package's to the bit, and
+the centre update adds in float32 in the order of the JAX package's CPU run
+(`_centre_sums`): XLA sums a one-hot matrix product over pixel chunks, and
+Eigen splits each chunk's contraction into shards across the host's threads.
+That order depends on the host's thread count; the port follows an 8-thread
+host (the hosts of this project's test runs and of the H100 machine have 8
+cores), on the CPU and on the card alike.
 
 Output convention matches masked skimage slic: labels 1..n inside the mask,
 0 outside.
@@ -14,6 +26,7 @@ Output convention matches masked skimage slic: labels 1..n inside the mask,
 from __future__ import annotations
 
 import concurrent.futures
+import os
 
 import numpy as np
 import torch
@@ -26,6 +39,93 @@ from roibasedimagecompression_torch.utils.timing import stage_timer
 
 _TILE = 2048  # pixel padding grid of the JAX Pallas mode
 _SENTINEL = 1e6
+
+
+# Eigen's contraction of one pixel chunk on an 8-thread host: the chunk splits
+# into 8 shards, each shard into blocks of `_eigen_kc(shard)` pixels.
+_EIGEN_SHARDS = 8
+_EIGEN_MAX_KC = 320
+_EIGEN_PEEL = 8
+
+
+def _eigen_kc(k: int) -> int:
+    """Eigen's depth block for a k-deep product (its kc blocking rule, with
+    the largest block 320), read off the JAX package's CPU sums."""
+    if k <= _EIGEN_MAX_KC or k % _EIGEN_MAX_KC == 0:
+        return min(k, _EIGEN_MAX_KC)
+    return _EIGEN_MAX_KC - _EIGEN_PEEL * (
+        (_EIGEN_MAX_KC - k % _EIGEN_MAX_KC) // (_EIGEN_PEEL * (k // _EIGEN_MAX_KC + 1))
+    )
+
+
+def _block_sums(x: torch.Tensor, rows: torch.Tensor, n_rows: int, loop: bool = False) -> torch.Tensor:
+    """(n_rows, 5) float32: x[blk, j] added into row rows[blk, j], the pixels
+    of each block one after another in float32 (rows of two blocks never
+    meet).  On the CPU numpy's unbuffered `add.at` adds element by element in
+    order; on the card (or with `loop`) pixel j of every block goes in at
+    once, kc launches in all."""
+    if x.device.type == "cpu" and not loop:
+        acc = np.zeros((n_rows, 5), np.float32)
+        np.add.at(acc, rows.reshape(-1).numpy(), x.reshape(-1, 5).numpy())
+        return torch.from_numpy(acc)
+    acc = torch.zeros((n_rows, 5), dtype=torch.float32, device=x.device)
+    x, rows = x.transpose(0, 1).contiguous(), rows.t().contiguous()
+    for j in range(x.shape[0]):
+        acc.index_add_(0, rows[j], x[j])
+    return acc
+
+
+def _centre_sums(ids: torch.Tensor, feats: torch.Tensor, valid: torch.Tensor,
+                 m: int, chunk: int, k: int) -> torch.Tensor:
+    """(B, K, 5) float32 sums of the valid pixels' features per centre, added
+    in the order of the JAX package's one-hot update on the CPU.
+
+    XLA scans the m pixels in chunks (running sum += chunk sum).  Eigen
+    contracts a chunk as 8 shards of chunk/8 pixels; each shard adds its
+    depth blocks in turn (shard += block), a block adds its pixels one after
+    another from zero, and the shards combine as ((s0 + s1) + (s2 + s3)) +
+    ((s4 + s5) + (s6 + s7)).  A one-hot product adds each feature exactly, so
+    this is those float32 additions and nothing else.  ids, valid: (B, MP)
+    with MP at most the chunks' span; pixels at or beyond m are never valid.
+    """
+    b, mp = ids.shape
+    dev = feats.device
+    n_chunks = -(-m // chunk)
+    span = n_chunks * chunk
+    shard = chunk // _EIGEN_SHARDS
+    kc = _eigen_kc(shard)
+    n_kc = -(-shard // kc)
+    x = torch.where(valid[..., None], feats, torch.zeros((), device=dev))
+    i = ids.long()
+    if span > mp:
+        x = torch.cat([x, x.new_zeros((b, span - mp, 5))], dim=1)
+        i = torch.cat([i, i.new_zeros((b, span - mp))], dim=1)
+    x = x.reshape(b * n_chunks * _EIGEN_SHARDS, shard, 5)
+    i = i.reshape(b * n_chunks * _EIGEN_SHARDS, shard)
+    if n_kc * kc > shard:
+        x = torch.cat([x, x.new_zeros((x.shape[0], n_kc * kc - shard, 5))], dim=1)
+        i = torch.cat([i, i.new_zeros((i.shape[0], n_kc * kc - shard))], dim=1)
+    n_blocks = x.shape[0] * n_kc
+    # Row of (block, centre) in the accumulator, for every pixel in order.
+    rows = torch.arange(n_blocks, device=dev)[:, None] * k + i.reshape(n_blocks, kc)
+    acc = _block_sums(x.reshape(n_blocks, kc, 5), rows, n_blocks * k)
+    acc = acc.view(b, n_chunks, _EIGEN_SHARDS, n_kc, k, 5)
+    s = acc[:, :, :, 0]
+    for q in range(1, n_kc):
+        s = s + acc[:, :, :, q]
+    d = ((s[:, :, 0] + s[:, :, 1]) + (s[:, :, 2] + s[:, :, 3])) + (
+        (s[:, :, 4] + s[:, :, 5]) + (s[:, :, 6] + s[:, :, 7])
+    )
+    out = d[:, 0]
+    for c in range(1, n_chunks):
+        out = out + d[:, c]
+    return out
+
+
+def direct_form() -> bool:
+    """True for the Pallas kernel's direct form (`RHCCQ_SLIC_PALLAS=1`),
+    False for the JAX package's default expanded form."""
+    return os.environ.get("RHCCQ_SLIC_PALLAS") == "1"
 
 
 def _slic_core_batch(
@@ -55,7 +155,8 @@ def _slic_core_batch(
     dev = rgb.device
     lab = CONV.gaussian_blur(COL.rgb_to_lab(rgb), sigma)
 
-    ratio = (compactness / step).float()  # (B,)
+    # A true division: `scalar / tensor` in torch is a reciprocal and a product.
+    ratio = torch.full_like(step, compactness, dtype=torch.float32) / step.float()  # (B,)
     yy = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None].expand(b, h, w)
     xx = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :].expand(b, h, w)
     feats = torch.cat(
@@ -76,23 +177,22 @@ def _slic_core_batch(
         feats = torch.cat([feats, feats.new_zeros((b, pad, 5))], dim=1)
         valid = torch.cat([valid, valid.new_zeros((b, pad))], dim=1)
     feats = feats.contiguous()
-    valid_f64 = valid.double()
-    feats64 = feats.double() * valid_f64[..., None]
+    direct = direct_form()
+    # The JAX package's update chunk: its Pallas tile, else min(16384, m).
+    chunk = _TILE if direct else min(16384, m)
 
-    def assign(c):
-        return SA.slic_assign(feats, torch.where(cv, c, torch.full_like(c, _SENTINEL)).contiguous())
+    if direct:
+        def assign(c):
+            return SA.slic_assign(feats, torch.where(cv, c, torch.full_like(c, _SENTINEL)).contiguous())
+    else:
+        def assign(c):
+            return SA.slic_assign_expanded(feats, c.contiguous(), center_valid)
 
     def update(ids, c):
-        # Exact-as-possible centre sums: float64 accumulation rounded once to
-        # float32, so the order of the sum (CPU loop, CUDA atomics) does not
-        # show in the centres.
-        idx = ids.long()
-        sums = torch.zeros((b, k, 5), dtype=torch.float64, device=dev)
-        sums.scatter_add_(1, idx[..., None].expand(b, idx.shape[1], 5), feats64)
-        counts = torch.zeros((b, k), dtype=torch.float64, device=dev)
-        counts.scatter_add_(1, idx, valid_f64)
-        counts = counts.float()
-        new = sums.float() / torch.clamp(counts, min=1.0)[..., None]
+        sums = _centre_sums(ids, feats, valid, m, chunk, k)
+        counts = torch.zeros((b, k), dtype=torch.float32, device=dev)
+        counts.scatter_add_(1, ids.long(), valid.float())  # integers: exact in any order
+        new = sums / torch.clamp(counts, min=1.0)[..., None]
         return torch.where(counts[..., None] > 0, new, c)
 
     # Early-exit Lloyd: once no id changes the update is a fixed point, so

@@ -27,6 +27,7 @@ from roibasedimagecompression_torch import config as cfg
 from roibasedimagecompression_torch.io import container
 from roibasedimagecompression_torch.models import codec as CODEC
 from roibasedimagecompression_torch.models import quantize_batched as QB
+from roibasedimagecompression_torch.models import refine as REFINE
 from roibasedimagecompression_torch.models import roi_fused as RF
 from roibasedimagecompression_torch.ops import canny as CANNY
 from roibasedimagecompression_torch.ops import pairs as PAIRS
@@ -69,10 +70,6 @@ def encode_many(
         if _start_gate is not None:
             _start_gate.wait()
         CODEC._check_ported(config)
-        if os.environ.get("RHCCQ_CANVAS_TIERS") == "1":
-            raise NotImplementedError(
-                "RHCCQ_CANVAS_TIERS=1 (the canvas tiers path) is not ported yet: ROADMAP A12"
-            )
         return _encode_many_inner(images, config, DEV.resolve(device), _frontend_done)
     finally:
         # Always unblock the successor, even on failure mid-frontend.
@@ -166,8 +163,11 @@ def _encode_many_inner(images: list, config: cfg.CodecConfig, device,
     #    table.  The segment stage left the batch's pixels on the device, so
     #    the pair table is a sort there; RHCCQ_DEVICE_PAIRS=0 switches to the
     #    host radix pack and the host index paint (the same bytes).
+    # The canvas tiers path paints pixels on the host, so it skips the device
+    # pair table, as the JAX package does.
+    canvas = CODEC.canvas_tiers(config)
     device_pairs = None
-    if dbatch is not None and os.environ.get("RHCCQ_DEVICE_PAIRS", "1") != "0":
+    if dbatch is not None and not canvas and os.environ.get("RHCCQ_DEVICE_PAIRS", "1") != "0":
         with stage_timer("t1.pairs_dev"):
             device_pairs = PAIRS.DevicePairTable(tall_seg, images_dev=dbatch.img)
     with stage_timer("s.tier1"):
@@ -176,6 +176,9 @@ def _encode_many_inner(images: list, config: cfg.CodecConfig, device,
             weighted=config.weighted_palette, split_method=config.split_method,
             split_margin=config.split_margin, device_pairs=device_pairs,
         )
+
+    if canvas:
+        return _finish_canvas_path(table, tall_seg, seg_group, batch, config, device)
 
     # 4. Tiers 2/3 and the final palettes composed on the cluster table;
     #    pixels are touched once more, for the final index paint.
@@ -192,6 +195,28 @@ def _encode_many_inner(images: list, config: cfg.CodecConfig, device,
     # 5. Container packing in the shared thread pool.
     def finish(k: int) -> bytes:
         palette, indices = pal_idx[k]
+        return container.pack(palette, indices, level=config.container_level)
+
+    with stage_timer("s.container"):
+        return list(_io_pool().map(finish, range(b)))
+
+
+def _finish_canvas_path(table, tall_seg, seg_group, batch, config, device) -> list:
+    """Tiers 2/3 on canvases (fill_black_holes edits the tier-2 canvas
+    before tier 3; RHCCQ_CANVAS_TIERS=1 asks for the path), then palettes,
+    refit and the containers."""
+    b, h, w, _ = batch.shape
+    t1_tall = np.zeros((b * h, w, 3), np.uint8)
+    if table is not None:
+        QB.paint_table(table, t1_tall)
+    t1_list = [t1_tall[k * h : (k + 1) * h] for k in range(b)]
+    group_maps = [seg_group[tall_seg[k * h : (k + 1) * h]] for k in range(b)]
+    with stage_timer("s.tier23"):
+        _, t3_list = CODEC.tiers23_colors_many(t1_list, group_maps, config, device)
+
+    def finish(k: int) -> bytes:
+        palette, indices = CODEC.canvas_palette_indices(t3_list[k], t1_list[k], config)
+        palette = REFINE.maybe_refit(batch[k], palette, indices, config)
         return container.pack(palette, indices, level=config.container_level)
 
     with stage_timer("s.container"):

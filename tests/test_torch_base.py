@@ -111,7 +111,9 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "print('ok')\n"
     )
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    # One torch thread: with the tier-1 command's six workers on eight cores,
+    # a default pool of one thread per core took 270-290 s of the 300 s.
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, env=env,
         timeout=300, cwd=str(ROOT),

@@ -3,6 +3,7 @@ segment map (bytes equal), the whole encode against the JAX encode, decode,
 and (with a card) the CUDA encode against the CPU encode."""
 
 import dataclasses
+import os
 
 import jax
 import numpy as np
@@ -25,6 +26,17 @@ from roibasedimagecompression_torch.models import refine as TRF
 from roibasedimagecompression_torch.utils.synthetic import synthetic_image
 
 CPU = torch.device("cpu")
+
+
+@pytest.fixture()
+def one_thread():
+    """Runs a test's torch work on one thread and restores the count after:
+    the suite runs several worker processes on the host's cores, and a torch
+    thread pool per worker only adds contention to these encode-heavy tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _noisy(seed, h=128, w=160, sigma=14.0):
@@ -103,17 +115,28 @@ def _torch_seg(img, device):
     return TCODEC.build_segment_map(img, *regs, config, device)[0]
 
 
-@pytest.fixture()
-def slic_pallas_mode(monkeypatch):
-    monkeypatch.setenv("RHCCQ_SLIC_PALLAS", "1")
+@pytest.fixture(scope="module")
+def slic_mode(request):
+    """RHCCQ_SLIC_PALLAS for both packages: "1" (the Pallas form), "0" or
+    None (unset: the JAX default's expanded form).  Module-scoped, so pytest
+    runs the tests of one mode together; the JAX package reads the variable
+    at trace time, so its caches are dropped when the mode is set and when it
+    is restored."""
+    old = os.environ.pop("RHCCQ_SLIC_PALLAS", None)
+    if request.param is not None:
+        os.environ["RHCCQ_SLIC_PALLAS"] = request.param
     jax.clear_caches()
-    yield
-    monkeypatch.delenv("RHCCQ_SLIC_PALLAS")
+    yield request.param
+    os.environ.pop("RHCCQ_SLIC_PALLAS", None)
+    if old is not None:
+        os.environ["RHCCQ_SLIC_PALLAS"] = old
     jax.clear_caches()
 
 
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("slic_mode", ["1", None], indirect=True, ids=["pallas", "default"], scope="module")
 @pytest.mark.parametrize("seed,h,w", [(31, 128, 160), (32, 160, 128), (33, 112, 144)])
-def test_whole_encode_matches_jax(slic_pallas_mode, seed, h, w):
+def test_whole_encode_matches_jax(slic_mode, seed, h, w):
     import roibasedimagecompression_tpu as rtc
 
     img = synthetic_image(seed, h, w)
@@ -146,12 +169,20 @@ def _coarse_palette_indices(img):
     return pal.astype(np.uint8), inv.reshape(img.shape[:2]).astype(np.uint16)
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(monkeypatch):
     img = synthetic_image(1, 64, 64)
-    for cfg in (tcfg.CodecConfig(batched=False), tcfg.CodecConfig(fill_black_holes=50),
-                tcfg.CodecConfig(weighted_split=True)):
-        with pytest.raises(NotImplementedError):
+    for cfg, item in ((tcfg.CodecConfig(batched=False), "A12b"),
+                      (tcfg.CodecConfig(region_fusion=True), "A12c"),
+                      (tcfg.CodecConfig(weighted_split=True), "A12c")):
+        with pytest.raises(NotImplementedError, match=item):
             rtt.encode(img, cfg, device="cpu")
+    # fill_black_holes and the canvas tiers path are ported: they encode.
+    filled = rtt.encode(img, tcfg.CodecConfig(fill_black_holes=50), device="cpu")
+    assert rtt.decode(filled).shape == img.shape
+    monkeypatch.setenv("RHCCQ_CANVAS_TIERS", "1")
+    assert rtt.encode(img, device="cpu") == rtt.encode(img, tcfg.CodecConfig(), device="cpu")
+    monkeypatch.delenv("RHCCQ_CANVAS_TIERS")
+    assert rtt.decode(rtt.encode(img, device="cpu")).shape == img.shape
     # fast_edges is ported: it encodes, and to other bytes than the sweep.
     fast = rtt.encode(img, tcfg.CodecConfig(fast_edges=True), device="cpu")
     assert rtt.decode(fast).shape == img.shape
@@ -174,8 +205,9 @@ def test_cuda_encode_matches_cpu(seed):
     )
 
 
+@pytest.mark.parametrize("slic_mode", ["1"], indirect=True, ids=["pallas"], scope="module")
 @pytest.mark.parametrize("case", ["gray", "black", "halves", "grayscale_2d", "tiny"])
-def test_edge_images_match_jax(slic_pallas_mode, case):
+def test_edge_images_match_jax(slic_mode, case):
     """Flat, all-black, two-tone, 2-D grayscale and tiny inputs."""
     import roibasedimagecompression_tpu as rtc
 

@@ -19,6 +19,7 @@ held against the JAX function on the same numpy input, on the CPU:
 
 import csv
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import roibasedimagecompression_torch as rtt
 from roibasedimagecompression_tpu import config as jcfg
 from roibasedimagecompression_tpu.eval import adaptive as JA
 from roibasedimagecompression_tpu.eval import harness as JH
@@ -50,9 +52,21 @@ from roibasedimagecompression_torch.ops import cluster as TCLU
 from roibasedimagecompression_torch.ops import colors as TCOL
 from roibasedimagecompression_torch.ops import metrics as TM
 from roibasedimagecompression_torch.ops import prng
+from roibasedimagecompression_torch.parallel import stream as TSTREAM
 from roibasedimagecompression_torch.utils.synthetic import synthetic_image
 
 CPU = "cpu"
+
+
+@pytest.fixture()
+def one_thread():
+    """Runs a test's torch work on one thread and restores the count after:
+    the suite runs several worker processes on the host's cores, and a torch
+    thread pool per worker only adds contention to these encode-heavy tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _degraded(seed, h=128, w=160):
@@ -337,3 +351,64 @@ def test_split_methods_encode_and_raise():
         )
     assert dataclasses.asdict(tcfg.CodecConfig(split_method="kmeans-mc"))["split_method"] == \
         dataclasses.asdict(jcfg.CodecConfig(split_method="kmeans-mc"))["split_method"]
+
+
+@pytest.fixture(scope="module")
+def slic_mode(request):
+    """RHCCQ_SLIC_PALLAS for both packages: "1" (the Pallas form), "0" or
+    None (unset: the JAX default's expanded form).  Module-scoped, so pytest
+    runs the tests of one mode together; the JAX package reads the variable
+    at trace time, so its caches are dropped when the mode is set and when it
+    is restored."""
+    old = os.environ.pop("RHCCQ_SLIC_PALLAS", None)
+    if request.param is not None:
+        os.environ["RHCCQ_SLIC_PALLAS"] = request.param
+    jax.clear_caches()
+    yield request.param
+    os.environ.pop("RHCCQ_SLIC_PALLAS", None)
+    if old is not None:
+        os.environ["RHCCQ_SLIC_PALLAS"] = old
+    jax.clear_caches()
+
+
+def _noisy(seed, h=128, w=160, sigma=14.0):
+    img = synthetic_image(seed, h, w).astype(np.float64)
+    img += np.random.default_rng(seed).normal(0, sigma, img.shape)
+    return np.clip(np.round(img), 0, 255).astype(np.uint8)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("slic_mode", ["1"], indirect=True, scope="module")
+@pytest.mark.parametrize("env,config", [
+    ({"RHCCQ_SPLIT_METHOD": "mediancut"}, {}),
+    ({"RHCCQ_SPLIT_MARGIN": "2.0"}, {}),
+    ({"RHCCQ_HYBRID_CUTOFF": "16"}, {}),
+    ({"RHCCQ_HYBRID_MARGIN": "2.0"}, {"split_method": "hybrid"}),
+])
+def test_split_overrides_from_the_environment(slic_mode, monkeypatch, env, config):
+    """Each override changes the bytes, and both packages read it alike."""
+    import roibasedimagecompression_tpu as rtc
+
+    img = _noisy(71, 96, 128, 14.0)
+    jconfig = jcfg.CodecConfig(**config)
+    tconfig = tcfg.from_dict(dataclasses.asdict(jconfig))
+    plain = rtt.encode(img, tconfig, device="cpu")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    ours = rtt.encode(img, tconfig, device="cpu")
+    assert ours == rtc.encode(img, jconfig)
+    assert ours != plain
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("value,raises", [("1", True), ("yes", True), ("0", False), ("", False)])
+def test_weighted_split_from_the_environment_raises(monkeypatch, value, raises):
+    img = _noisy(72, 64, 80, 14.0)
+    monkeypatch.setenv("RHCCQ_WEIGHTED_SPLIT", value)
+    if raises:
+        with pytest.raises(NotImplementedError, match="A12c"):
+            rtt.encode(img, device="cpu")
+        with pytest.raises(NotImplementedError, match="A12c"):
+            TSTREAM.encode_many([img], device="cpu")
+    else:
+        assert rtt.decode(rtt.encode(img, device="cpu")).shape == img.shape

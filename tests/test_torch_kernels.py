@@ -18,8 +18,21 @@ from roibasedimagecompression_tpu.ops.pallas import epscc as JEPS
 from roibasedimagecompression_tpu.ops.pallas import slic_assign as JSA
 from roibasedimagecompression_torch import native as tnative
 from roibasedimagecompression_torch.ops import cluster as TCL
+from roibasedimagecompression_torch.ops import prng
+from roibasedimagecompression_torch.ops import slic as TSLIC
 from roibasedimagecompression_torch.ops.cuda import epscc as TEPS
 from roibasedimagecompression_torch.ops.cuda import slic_assign as TSA
+
+
+@pytest.fixture()
+def one_thread():
+    """Runs a test's torch work on one thread and restores the count after:
+    the suite runs several worker processes on the host's cores, and a torch
+    thread pool per worker only adds contention to these encode-heavy tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture()
@@ -355,3 +368,126 @@ def test_cuda_eps_packed_matches_plain(cuda, rng):
     want, _ = TEPS.eps_components_packed(rows, eps2)
     got, _ = TEPS.eps_components_packed(rows.to(cuda), eps2.to(cuda))
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+# ---------------------------------------------------------------------------
+# Kernel 1's expanded form, the SLIC centre sums and the torch log32 (the
+# JAX package's default SLIC and k-means++ logits).
+# ---------------------------------------------------------------------------
+
+@jax.jit
+def _jax_expanded_assign(rows, centers, center_valid):
+    """The assign of the JAX package's default SLIC mode (ops/slic.py,
+    `_slic_core`, `one_chunk`), written out as it is there."""
+    c2 = jnp.sum(centers * centers, axis=1)
+    d2 = (
+        jnp.sum(rows * rows, axis=1, keepdims=True)
+        + c2[None, :]
+        - 2.0 * jax.lax.dot_general(
+            rows, centers, dimension_numbers=(((1,), (1,)), ((), ())),
+            preferred_element_type=jnp.float32, precision=jax.lax.Precision.HIGHEST,
+        )
+    )
+    d2 = jnp.where(center_valid[None, :], d2, jnp.float32(3.4e38))
+    return jnp.argmin(d2, axis=1).astype(jnp.int32)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("seed,k,scale,near_tie", [
+    (0, 64, 100.0, False), (1, 256, 100.0, True), (2, 64, 1.0, True), (3, 64, 250.0, True),
+])
+def test_expanded_assign_plain_matches_xla(seed, k, scale, near_tie):
+    """No tie allowance: the plain version rounds where XLA's CPU code
+    rounds.  The near-tie case repeats half the centres moved by a few 1e-5;
+    a quarter of the centres are not valid and must never win."""
+    rng = np.random.default_rng(seed)
+    mp = 16384
+    feats = (rng.random((mp, 5)) * scale).astype(np.float32)
+    centers = (rng.random((k, 5)) * scale).astype(np.float32)
+    if near_tie:
+        centers[k // 2:] = centers[: k - k // 2] + rng.integers(-2, 3, (k - k // 2, 5)).astype(
+            np.float32) * np.float32(1e-5)
+    valid = np.ones(k, bool)
+    valid[rng.choice(k, k // 4, replace=False)] = False
+    want = np.asarray(_jax_expanded_assign(feats, centers, valid))
+    got = TSA.slic_assign_expanded(
+        torch.from_numpy(feats)[None], torch.from_numpy(centers)[None], torch.from_numpy(valid)[None]
+    )[0].numpy()
+    np.testing.assert_array_equal(got, want)
+    assert valid[got].all()
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_expanded_assign_checks_its_arguments():
+    f, c = torch.zeros((1, 64, 5)), torch.zeros((1, 4, 5))
+    with pytest.raises(ValueError, match="center_valid"):
+        TSA.slic_assign_expanded(f, c, torch.ones((1, 3), dtype=torch.bool))
+    with pytest.raises(ValueError, match="center_valid"):
+        TSA.slic_assign_expanded(f, c, torch.ones((1, 4), dtype=torch.uint8))
+
+
+@functools.partial(jax.jit, static_argnames=("chunk", "k"))
+def _jax_centre_sums(feats, valid, ids, chunk, k):
+    """The JAX package's SLIC centre sums (ops/slic.py, `_update`), vmapped
+    as its bucket calls are."""
+    def one(f, v, i):
+        kids = jnp.arange(k)[None, :]
+
+        def upd_chunk(sums, start):
+            rows = jax.lax.dynamic_slice_in_dim(f, start, chunk)
+            ch = jax.lax.dynamic_slice_in_dim(i, start, chunk)
+            vv = jax.lax.dynamic_slice_in_dim(v, start, chunk)
+            oh = ((ch[:, None] == kids) & vv[:, None]).astype(jnp.float32)
+            return sums + jax.lax.dot_general(
+                oh, rows, dimension_numbers=(((0,), (0,)), ((), ())),
+                preferred_element_type=jnp.float32, precision=jax.lax.Precision.HIGHEST), None
+
+        sums, _ = jax.lax.scan(upd_chunk, jnp.zeros((k, 5), jnp.float32), jnp.arange(0, f.shape[0], chunk))
+        return sums
+
+    return jax.vmap(one)(feats, valid, ids)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("m,chunk,k", [
+    (4096, 2048, 64), (32768, 2048, 256), (4096, 4096, 64), (8192, 8192, 256), (16384, 16384, 64),
+    (40960, 16384, 64),
+])
+def test_centre_sums_match_xla_update(m, chunk, k):
+    """The SLIC centre sums in the order of the JAX package's CPU run, bit for
+    bit: chunks of 2048 (the Pallas mode) and of min(16384, m) (the default).
+    The order is that of an 8-thread host, which this project's hosts are."""
+    rng = np.random.default_rng(m + k)
+    feats = np.zeros((2, m, 5), np.float32)
+    feats[..., 0] = rng.uniform(0, 100, (2, m))
+    feats[..., 1:3] = rng.uniform(-60, 60, (2, m, 2))
+    feats[..., 3:] = rng.uniform(0, 120, (2, m, 2))
+    ids = rng.integers(0, k, (2, m)).astype(np.int32)
+    valid = rng.random((2, m)) < 0.9
+    span = -(-m // chunk) * chunk
+    pad = lambda a: np.concatenate([a, np.zeros((2, span - m) + a.shape[2:], a.dtype)], 1)  # noqa: E731
+    want = np.asarray(_jax_centre_sums(pad(feats), pad(valid), pad(ids), chunk, k))
+    got = TSLIC._centre_sums(torch.from_numpy(ids), torch.from_numpy(feats), torch.from_numpy(valid),
+                             m, chunk, k)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # The card's form of the block sums (one launch per pixel position) adds
+    # in the same order as the CPU's numpy form.
+    x = torch.from_numpy(feats[0, :2048].reshape(8, 256, 5))
+    rows = torch.arange(8)[:, None] * k + torch.from_numpy(ids[0, :2048].reshape(8, 256)).long()
+    assert torch.equal(TSLIC._block_sums(x, rows, 8 * k), TSLIC._block_sums(x, rows, 8 * k, loop=True))
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_log32_torch_is_xla_log():
+    """>= 10^6 floats: uniforms, squared colour distances, and distances a
+    few ulps apart (the k-means++ logits)."""
+    rng = np.random.default_rng(0)
+    x = np.concatenate([
+        rng.random(600_000).astype(np.float32),
+        (rng.integers(0, 256, (300_000, 3)).astype(np.float32) ** 2).sum(1),
+        np.float32(1234.5) * (1 + rng.integers(-64, 64, 150_000) * np.float32(2.0**-23)),
+    ]).astype(np.float32) + np.float32(1e-20)
+    want = np.asarray(jax.jit(jnp.log)(x))
+    got = prng.log32(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(prng.log32(x).view(np.int32), want.view(np.int32))

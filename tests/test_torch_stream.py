@@ -4,6 +4,7 @@ each held against the JAX package on the same inputs (JAX on the CPU, the
 port with device="cpu", where its kernels' plain versions run)."""
 
 import dataclasses
+import os
 import functools
 import sys
 import threading
@@ -43,12 +44,31 @@ CPU = torch.device("cpu")
 
 
 @pytest.fixture()
-def slic_pallas_mode(monkeypatch):
-    """The port's SLIC follows the JAX package's Pallas mode."""
-    monkeypatch.setenv("RHCCQ_SLIC_PALLAS", "1")
-    jax.clear_caches()
+def one_thread():
+    """Runs a test's torch work on one thread and restores the count after:
+    the suite runs several worker processes on the host's cores, and a torch
+    thread pool per worker only adds contention to these encode-heavy tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
     yield
-    monkeypatch.delenv("RHCCQ_SLIC_PALLAS")
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def slic_mode(request):
+    """RHCCQ_SLIC_PALLAS for both packages: "1" (the Pallas form), "0" or
+    None (unset: the JAX default's expanded form).  Module-scoped, so pytest
+    runs the tests of one mode together; the JAX package reads the variable
+    at trace time, so its caches are dropped when the mode is set and when it
+    is restored."""
+    old = os.environ.pop("RHCCQ_SLIC_PALLAS", None)
+    if request.param is not None:
+        os.environ["RHCCQ_SLIC_PALLAS"] = request.param
+    jax.clear_caches()
+    yield request.param
+    os.environ.pop("RHCCQ_SLIC_PALLAS", None)
+    if old is not None:
+        os.environ["RHCCQ_SLIC_PALLAS"] = old
     jax.clear_caches()
 
 
@@ -335,8 +355,10 @@ def _assert_same_batch(imgs, ours, theirs, tconfig, jconfig):
         assert abs(len(a) - len(b)) <= 0.01 * len(b)
 
 
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("slic_mode", ["1", None], indirect=True, ids=["pallas", "default"], scope="module")
 @pytest.mark.parametrize("preset", ["default", "low_latency"])
-def test_encode_many_matches_jax(slic_pallas_mode, monkeypatch, preset):
+def test_encode_many_matches_jax(slic_mode, monkeypatch, preset):
     """Seed 62 under fast edges has a small ROI region demoted into the
     non-ROI raster, where two regions of one kind overlap."""
     tconfig, jconfig = _configs(preset)
@@ -381,11 +403,16 @@ def test_encode_many_argument_laws(monkeypatch):
     assert TSTREAM.encode_many([], device="cpu") == []
     with pytest.raises(ValueError, match="same-shape"):
         TSTREAM.encode_many([a, b], device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        TSTREAM.encode_many([a], tcfg.CodecConfig(fill_black_holes=50), device="cpu")
+    with pytest.raises(NotImplementedError, match="A12b"):
+        TSTREAM.encode_many([a], tcfg.CodecConfig(batched=False), device="cpu")
+    with pytest.raises(NotImplementedError, match="A12c"):
+        TSTREAM.encode_many([a], tcfg.CodecConfig(region_fusion=True), device="cpu")
+    # The canvas tiers path is ported: fill_black_holes and
+    # RHCCQ_CANVAS_TIERS=1 encode, the latter to the composed path's bytes.
+    composed = TSTREAM.encode_many([a], device="cpu")
+    assert TSTREAM.encode_many([a], tcfg.CodecConfig(fill_black_holes=50), device="cpu")
     monkeypatch.setenv("RHCCQ_CANVAS_TIERS", "1")
-    with pytest.raises(NotImplementedError, match="A12"):
-        TSTREAM.encode_many([a], device="cpu")
+    assert TSTREAM.encode_many([a], device="cpu") == composed
     monkeypatch.delenv("RHCCQ_CANVAS_TIERS")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
