@@ -65,10 +65,17 @@ Phases, in order; any failed check exits non-zero:
      phases 5 and 7 (the composed path), then both at fill_black_holes=10,
      one image held to the CPU encode; and one `encode` under
      RHCCQ_SLIC_PALLAS=1 (kernel 1's direct form) against the CPU;
- 11. cover: every (form, B, MP, K) and (B, N) that phases 5, 7, 8, 9 and 10
-     launched and phases 3 and 4 did not check is checked against the plain
-     version now, so no path runs a kernel at a shape the run has not held;
- 12. one JSON line of kernel measurements, then the card line, then the
+ 11. loop: the reference-shaped loop (`CodecConfig(batched=False)`) on
+     phase 5's first image, at `single_region=True` and with its ROI
+     frontend, counts read around each encode (both kernels must launch),
+     each byte for byte equal to the CPU encode of the same image; stage
+     seconds; and the box filter of the ROI masks (k = 3, 15, 25, the order
+     of XLA's CPU convolution) on the card against the CPU, bit for bit;
+ 12. cover: every (form, B, MP, K) and (B, N) that phases 5, 7, 8, 9, 10 and
+     11 launched and phases 3 and 4 did not check is checked against the
+     plain version now, so no path runs a kernel at a shape the run has not
+     held;
+ 13. one JSON line of kernel measurements, then the card line, then the
      final {"ok": true, ...} line.
 
 Without CUDA, or without the package beside this file, it exits non-zero
@@ -303,9 +310,11 @@ def count_device_calls(fn, tries=3) -> dict:
     """Kernels, copies/memsets and host synchronisations of one call of `fn`,
     read from a profiler trace, and the loop kernel's launches by its
     wrapper's count.  The profiler now and then hands back a trace of so short
-    a window without any of the card's activity (the host's side is there);
-    it is then asked again, and after `tries` such traces `kernels` and
-    `copies` are None (not measured) and only the count says the loop ran."""
+    a window without the card's kernels (the host's side is there, sometimes
+    a copy); every call launches at least one kernel, so such a trace is
+    incomplete: it is asked again, and after `tries` such traces `kernels`
+    and `copies` are None (not measured) and only the count says the loop
+    ran."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -327,7 +336,7 @@ def count_device_calls(fn, tries=3) -> dict:
                 kernels.append(name.split("<")[0].split("(anonymous namespace)::")[-1].split("(")[0][-40:])
             elif name in ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize"):
                 syncs += 1
-        if kernels or copies:
+        if kernels:
             break
     else:
         kernels = copies = None
@@ -533,7 +542,7 @@ def seg_agreement(img, config, device_a, device_b) -> float:
     else:
         low, high = canny.select_thresholds_pair(img)
     roi, nonroi = roi_fused.roi_masks_fast(img, config, low, high)
-    regions = codec._extract_and_assign(roi, nonroi, cfg.min_region_size(img.size))
+    regions = codec._extract_and_assign(img, roi, nonroi, config, cfg.min_region_size(img.size))
     a = codec.build_segment_map(img, *regions, config, device_a)[0]
     b = codec.build_segment_map(img, *regions, config, device_b)[0]
     return float(np.mean(a == b))
@@ -989,6 +998,54 @@ def run_canvas(device, images, datas, batch, batch_datas, n_cpu=1):
     return {"runs": runs, "results": results}
 
 
+def run_loop(device, image, n_cpu=1):
+    """The reference-shaped loop on `image`: `encode` at
+    CodecConfig(batched=False, single_region=True) and CodecConfig(batched=
+    False), counts and stage seconds read around each, bytes held to the CPU
+    encode (the first `n_cpu` configs); then the ROI masks' box filter on the
+    card against the CPU, bit for bit, on the image's edge map."""
+    import numpy as np
+    import torch
+
+    import roibasedimagecompression_torch as rtt
+    from roibasedimagecompression_torch import config as cfg
+    from roibasedimagecompression_torch.ops import canny
+    from roibasedimagecompression_torch.ops import conv
+    from roibasedimagecompression_torch.utils import timing
+
+    runs = {}
+    configs = (("single_region", cfg.CodecConfig(batched=False, single_region=True)),
+               ("roi", cfg.CodecConfig(batched=False)))
+    for i, (label, config) in enumerate(configs):
+        reset_counts()
+        t0 = time.perf_counter()
+        data = rtt.encode(image, config, device=device)
+        seconds = time.perf_counter() - t0
+        launches, shapes = read_counts()
+        for name in ("slic_assign", "eps_components"):
+            check(device.type != "cuda" or launches[name] > 0, f"the loop ({label}) launched {name} no time")
+        rec = decode_and_score([image], [data], device)[0]
+        rec.update({"seconds": seconds, "launches": launches, "shapes": shapes,
+                    "stages": {k: v["seconds"] for k, v in timing.stage_report().items()}})
+        if i < n_cpu or device.type == "cuda":
+            t0 = time.perf_counter()
+            ref = rtt.encode(image, config, device="cpu")
+            rec["cpu_seconds"] = time.perf_counter() - t0
+            check(data == ref, f"the loop ({label}) on {device} wrote other bytes than on the CPU")
+            rec["bytes_equal_cpu"] = True
+        runs[label] = rec
+    edges = torch.from_numpy(canny.get_edge_map(image)[0])
+    box = {}
+    for k in (3, 15, 25):
+        got = conv.box_density(edges.to(device), k).cpu().numpy()
+        want = conv.box_density(edges, k).numpy()
+        check(bool((got.view(np.uint32) == want.view(np.uint32)).all()),
+              f"box_density(k={k}) on {device} differs from the CPU's bits")
+        box[k] = time_cuda(lambda: conv.box_density(edges.to(device), k), reps=3, warmup=1) \
+            if device.type == "cuda" else None
+    return {"runs": runs, "box_ms": box}
+
+
 def device_idle_share(fn) -> dict:
     """Run `fn` inside one profiler window and return the window's length on
     the host clock, the time in which at least one kernel or copy ran on the
@@ -1208,7 +1265,25 @@ def main() -> int:
                        for name in launches_cli}
 
     print(f"[time] phase 10 ended at {time.perf_counter() - t_script:.1f} s")
-    # -- 11. cover ------------------------------------------------------------------
+    # -- 11. loop -------------------------------------------------------------------
+    t_loop = time.perf_counter()
+    lp = run_loop(device, images_one[0])
+    for label, rec in lp["runs"].items():
+        print(f"[loop {label}] encode of 768x512: {rec['seconds']:.3f} s on the card, "
+              f"{rec['cpu_seconds']:.3f} s on the CPU, bytes equal; PSNR {rec['psnr_db']:.2f} dB, "
+              f"{rec['bpp']:.3f} bpp [{card}]")
+        print(f"[loop {label}] launches: {rec['launches']}")
+        for name, hist in rec["shapes"].items():
+            print(f"[loop {label}] launch shapes, {name}: {json.dumps(hist)}")
+        print(f"[loop {label}] stages: {json.dumps({k: round(v, 4) for k, v in rec['stages'].items()})} [{card}]")
+    print(f"[loop] box_density of the edge map (k = 3, 15, 25) on the card equals the CPU's bits; "
+          f"ms by CUDA events: {json.dumps(lp['box_ms'])} [{card}]")
+    print(f"[loop] phase seconds: {time.perf_counter() - t_loop:.1f}")
+    launches_loop = {name: sum(rec["launches"][name] for rec in lp["runs"].values())
+                     for name in launches_cli}
+
+    print(f"[time] phase 11 ended at {time.perf_counter() - t_script:.1f} s")
+    # -- 12. cover ------------------------------------------------------------------
     # Whatever shape a path launched a kernel at, beyond those of phases 3 and
     # 4, is held against the plain version here.
     def slic_key(r):
@@ -1225,24 +1300,25 @@ def main() -> int:
     for r in k2_packed:
         r["on_path"] = tuple(r["shape"]) in launched_shapes["eps_components"]
     print(f"[cover] slic_assign also checked at {more}, the packed eps loop at {more_eps}: every "
-          f"shape the five paths launched ({len(launched_shapes['slic_assign'])} and "
+          f"shape the paths launched ({len(launched_shapes['slic_assign'])} and "
           f"{len(launched_shapes['eps_components'])}) is held against the plain version; checked "
           f"but launched by no path: slic_assign {[slic_key(r) for r in k1 if not r['on_path']]}, "
           f"packed eps loop {[r['shape'] for r in k2_packed if not r['on_path']]}")
 
-    print(f"[time] phase 11 ended at {time.perf_counter() - t_script:.1f} s")
-    # -- 12. kernels line ------------------------------------------------------------
+    print(f"[time] phase 12 ended at {time.perf_counter() - t_script:.1f} s")
+    # -- 13. kernels line ------------------------------------------------------------
     # `launches` count the main paths, each read around its own run from 0:
     # the one-image encodes of phase 5, the warm encode_many at CodecConfig()
-    # of phase 7, the in-process CLI encodes of phase 9 and the canvas runs of
+    # of phase 7, the in-process CLI encodes of phase 9, the canvas runs of
     # phase 10 (kernel 1's direct form runs in its RHCCQ_SLIC_PALLAS=1
-    # encode); the stream's are beside them.
+    # encode) and the loop's two encodes of phase 11; the stream's are beside
+    # them.
     def launches_of(name):
         return {"launches": launches_one[name] + launches_batch[name] + launches_cli[name]
-                + launches_canvas[name],
+                + launches_canvas[name] + launches_loop[name],
                 "launches_one_image": launches_one[name], "launches_batch": launches_batch[name],
                 "launches_cli": launches_cli[name], "launches_canvas": launches_canvas[name],
-                "launches_stream": sr["launches"][name]}
+                "launches_loop": launches_loop[name], "launches_stream": sr["launches"][name]}
 
     # The headline numbers of each entry are those of the largest shape a path
     # launched it at (by pixels, B * MP, and by pairs, B * N * N): (8, 221184,
@@ -1275,7 +1351,7 @@ def main() -> int:
         # `ms` times) is launched by no encode.
         | launches_of("eps_components")
         | {"launches_alone": launches_one["eps_sweep_alone"] + launches_batch["eps_sweep_alone"]
-                            + launches_cli["eps_sweep_alone"],
+                            + launches_cli["eps_sweep_alone"] + launches_loop["eps_sweep_alone"],
            "max_abs_err": max(r["max_abs_err"] for r in k2),
            "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
            "bound_by": big["bound_by"], "library_ms": None,
@@ -1284,7 +1360,8 @@ def main() -> int:
          "source": "roibasedimagecompression_torch/csrc/epscc.cu",
          "replaces": "roibasedimagecompression_tpu/ops/pallas/epscc.py:97"}
         | launches_of("eps_components")
-        | {"rounds": launches_one["eps_rounds"] + launches_batch["eps_rounds"] + launches_cli["eps_rounds"],
+        | {"rounds": launches_one["eps_rounds"] + launches_batch["eps_rounds"] + launches_cli["eps_rounds"]
+                     + launches_loop["eps_rounds"],
            "max_abs_err": max(r["loop_max_abs_err"] for r in k2 + k2_packed),
            # One whole call (pack, loop kernel, read-back) through the packed
            # entry at the largest shape a path launched; its bound is one

@@ -11,6 +11,12 @@ RHCCQ_CANVAS_TIERS=1) paints tier 1 onto a canvas and clusters tiers 2 and 3
 as colour maps (`tiers23_colors_many`), so the holes of the tier-2 canvas can
 be filled before tier 3; without holes to fill it writes the same bytes as
 the composed path.
+
+`CodecConfig(batched=False)` takes the reference-shaped loop instead: ROI
+masks (`models/roi.py`) -> regions -> per-region split score and SLIC, and
+per-segment palette clustering (`subregion_quantization`) -> tier 2 per
+region group -> tier 3 on the whole image (`models/quantize.py`) ->
+container.  `single_region=True` treats the whole image as one ROI region.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from roibasedimagecompression_torch import config as cfg
 from roibasedimagecompression_torch import native
 from roibasedimagecompression_torch.io import container as C
 from roibasedimagecompression_torch.models import holes as HOLES
+from roibasedimagecompression_torch.models import quantize as Q
 from roibasedimagecompression_torch.models import quantize_batched as QB
 from roibasedimagecompression_torch.models import refine as RF
 from roibasedimagecompression_torch.models import segment as SEG
@@ -31,8 +38,74 @@ from roibasedimagecompression_torch.utils import device as DEV
 from roibasedimagecompression_torch.utils.timing import stage_timer
 
 
-def _extract_and_assign(roi_mask, nonroi_mask, min_size):
-    """Region extraction + small-ROI demotion."""
+def _black_repair(pixels: np.ndarray) -> np.ndarray:
+    """Every black pixel of a segment takes the segment's darkest non-black
+    colour (the nearest to black by L2 in colour space)."""
+    black = np.all(pixels == 0, axis=1)
+    if not black.any():
+        return pixels
+    non_black = pixels[~black]
+    if len(non_black) == 0:
+        return pixels
+    norms = (non_black.astype(np.int64) ** 2).sum(axis=1)
+    darkest = non_black[np.argmin(norms)]
+    out = pixels.copy()
+    out[black] = darkest
+    return out
+
+
+def subregion_quantization(image_rgb: np.ndarray, regions: list, quality: float,
+                           config: cfg.CodecConfig, device) -> list:
+    """Tier 1 of the loop: per region, the split score sets the SLIC segment
+    count; each segment's pixels (black repaired, within a `segment_pad`
+    margin of its bbox) are clustered as one palette.  Returns one merged
+    Component per region."""
+    out = []
+    for region in regions:
+        minr, minc, maxr, maxc = region.bbox
+        crop = image_rgb[minr:maxr, minc:maxc]
+        mask = region.bbox_mask
+
+        n_seg = SEG.optimal_segments(crop, mask, device)
+        labels = SEG.region_segments(
+            crop, mask, n_seg, device,
+            compactness=config.slic_compactness, sigma=config.slic_sigma,
+        )
+
+        comps = []
+        for seg_id in range(1, int(labels.max()) + 1):
+            seg_mask = labels == seg_id
+            if not seg_mask.any():
+                continue
+            rows = np.flatnonzero(seg_mask.any(axis=1))
+            cols = np.flatnonzero(seg_mask.any(axis=0))
+            pad = config.segment_pad
+            r0 = max(0, rows[0] - pad)
+            r1 = min(crop.shape[0] - 1, rows[-1] + pad)
+            c0 = max(0, cols[0] - pad)
+            c1 = min(crop.shape[1] - 1, cols[-1] + pad)
+
+            seg_crop_mask = seg_mask[r0 : r1 + 1, c0 : c1 + 1]
+            bbox_crop = crop[r0 : r1 + 1, c0 : c1 + 1]
+            seg_img = np.zeros_like(bbox_crop)
+            seg_img[seg_crop_mask] = _black_repair(bbox_crop[seg_crop_mask])
+
+            comp = Q.from_pixels(seg_img, (minr + r0, minc + c0))
+            comps.append(Q.cluster_component(comp, quality, device, seed=config.seed))
+
+        if not comps:
+            continue
+        out.append(Q.merge_components(comps, region.bbox) if len(comps) > 1 else comps[0])
+    return out
+
+
+def _extract_and_assign(image_rgb, roi_mask, nonroi_mask, config, min_size):
+    """Region extraction + small-ROI demotion.  The alternative with region
+    fusion (config.region_fusion) is not ported."""
+    if config.region_fusion:
+        raise NotImplementedError(
+            f"region_fusion is not ported yet: {_UNPORTED['region_fusion']}"
+        )
     roi_regions = SEG.extract_regions(roi_mask, "roi")
     nonroi_regions = SEG.extract_regions(nonroi_mask, "nonroi")
     return SEG.reassign_small_roi(roi_regions, nonroi_regions, min_size)
@@ -404,13 +477,14 @@ _UNPORTED = {
 
 
 def _check_ported(config: cfg.CodecConfig) -> None:
-    if not config.batched:
-        raise NotImplementedError(
-            "batched=False (the reference-shaped loop) is not ported yet: ROADMAP A12b"
-        )
     for field, item in _UNPORTED.items():
         if getattr(config, field):
             raise NotImplementedError(f"{field} is not ported yet: {item}")
+
+
+def _single_region(h: int, w: int) -> list:
+    """The whole image as one ROI region."""
+    return [SEG.Region(bbox=(0, 0, h, w), bbox_mask=np.ones((h, w), bool), area=h * w, kind="roi")]
 
 
 def encode_batched(image_rgb: np.ndarray, config: cfg.CodecConfig, device) -> bytes:
@@ -424,11 +498,7 @@ def encode_batched(image_rgb: np.ndarray, config: cfg.CodecConfig, device) -> by
 
     with stage_timer("roi"):
         if config.single_region:
-            roi_regions = [
-                SEG.Region(bbox=(0, 0, h, w), bbox_mask=np.ones((h, w), bool),
-                           area=h * w, kind="roi")
-            ]
-            nonroi_regions = []
+            roi_regions, nonroi_regions = _single_region(h, w), []
         else:
             if config.fast_edges:
                 # The same reduced-candidate law as the batch frontend.
@@ -437,7 +507,9 @@ def encode_batched(image_rgb: np.ndarray, config: cfg.CodecConfig, device) -> by
             else:
                 low, high = CANNY.select_thresholds_pair(image_rgb)
             roi_mask, nonroi_mask = ROI.roi_masks_fast(image_rgb, config, low, high)
-            roi_regions, nonroi_regions = _extract_and_assign(roi_mask, nonroi_mask, min_size)
+            roi_regions, nonroi_regions = _extract_and_assign(
+                image_rgb, roi_mask, nonroi_mask, config, min_size
+            )
 
     with stage_timer("segment"):
         seg_map, seg_quality, seg_group = build_segment_map(
@@ -480,7 +552,58 @@ def encode(image_rgb: np.ndarray, config: cfg.CodecConfig | None = None,
     """
     config = config or cfg.CodecConfig()
     _check_ported(config)
-    return encode_batched(image_rgb, config, DEV.resolve(device))
+    device = DEV.resolve(device)
+    if config.batched:
+        return encode_batched(image_rgb, config, device)
+    return encode_loop(image_rgb, config, device)
+
+
+def encode_loop(image_rgb: np.ndarray, config: cfg.CodecConfig, device) -> bytes:
+    """The reference-shaped loop (`CodecConfig(batched=False)`): ROI masks,
+    then regions one by one through SLIC and tier 1, one palette problem at a
+    time through tiers 2 and 3."""
+    image_rgb = np.ascontiguousarray(np.asarray(image_rgb, dtype=np.uint8))
+    h, w = image_rgb.shape[:2]
+    min_size = cfg.min_region_size(image_rgb.size)
+
+    with stage_timer("roi"):
+        if config.single_region:
+            roi_regions, nonroi_regions = _single_region(h, w), []
+        else:
+            from roibasedimagecompression_torch.models import roi as ROI
+
+            roi_mask, nonroi_mask = ROI.roi_masks(image_rgb, config, device)
+            roi_regions, nonroi_regions = _extract_and_assign(
+                image_rgb, roi_mask, nonroi_mask, config, min_size
+            )
+
+    with stage_timer("tier1"):
+        roi_comps = subregion_quantization(image_rgb, roi_regions, config.roi_quality, config, device)
+        nonroi_comps = subregion_quantization(
+            image_rgb, nonroi_regions, config.nonroi_quality, config, device
+        )
+
+    with stage_timer("tier2"):
+        image_components = []
+        for comps, q2 in ((roi_comps, config.roi_tier2_quality),
+                          (nonroi_comps, config.nonroi_tier2_quality)):
+            if comps:
+                image_components.append(Q.region_quantization(comps, h, w, q2, device, seed=config.seed))
+
+    with stage_timer("tier3"):
+        final = Q.quantize_image(image_components, h, w, config.image_quality, device,
+                                 seed=config.seed)
+
+    with stage_timer("container"):
+        palette, indices = final.palette, final.indices
+        iters = RF.effective_iters(config)
+        if iters > 0:
+            # The tier-1 canvas: every tier-1 component merged, the first
+            # wins and black never writes, as the batched path's paint.
+            t1 = Q.merge_components(roi_comps + nonroi_comps, (0, 0, h, w)).to_rgb()
+            palette, indices = RF.refine_canvas(t1, palette, iters)
+        palette = RF.maybe_refit(image_rgb, palette, indices, config)
+        return C.pack(palette, indices, level=config.container_level)
 
 
 def decode(source) -> np.ndarray:

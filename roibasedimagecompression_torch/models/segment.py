@@ -214,6 +214,12 @@ def split_scores_many(
     return out
 
 
+def split_score(bbox_rgb: np.ndarray, bbox_mask: np.ndarray, device):
+    """(overall, color, texture) of one region crop; regions under 100 px
+    score 0."""
+    return split_scores_many([bbox_rgb], [bbox_mask], device)[0]
+
+
 def optimal_segments_many(
     crops: list, masks: list, device, sources: list | None = None,
     dbatch: DeviceBatch | None = None,
@@ -224,6 +230,12 @@ def optimal_segments_many(
         cfg.logistic_segments(scores[i][0], cfg.segment_window(crops[i].size))
         for i in range(len(crops))
     ]
+
+
+def optimal_segments(bbox_rgb: np.ndarray, bbox_mask: np.ndarray, device) -> int:
+    """SLIC segment count of one region crop (the logistic window law of its
+    split score)."""
+    return optimal_segments_many([bbox_rgb], [bbox_mask], device)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -362,3 +374,11 @@ def region_segments_many(
             lab[~masks[i]] = 0
         out[i] = lab
     return out
+
+
+def region_segments(bbox_rgb: np.ndarray, bbox_mask: np.ndarray, n_segments: int, device,
+                    compactness: float = 10.0, sigma: float = 1.0) -> np.ndarray:
+    """SLIC labels of one region crop (see region_segments_many)."""
+    return region_segments_many(
+        [bbox_rgb], [bbox_mask], [n_segments], device, compactness=compactness, sigma=sigma,
+    )[0]

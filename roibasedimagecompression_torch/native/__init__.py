@@ -108,6 +108,19 @@ def get_lib():
         return _lib
 
 
+def require(what: str):
+    """The loaded runtime, or NotImplementedError naming ROADMAP A13 when it
+    cannot be built or loaded: the JAX package's device fallbacks for a host
+    without the runtime are not ported, and the port never slides to them."""
+    try:
+        return get_lib()
+    except (OSError, RuntimeError) as exc:
+        raise NotImplementedError(
+            f"{what} without the native runtime (the JAX package's device "
+            "fallback) is not ported yet: ROADMAP A13"
+        ) from exc
+
+
 def _ptr(a: np.ndarray):
     return a.ctypes.data
 

@@ -1,10 +1,13 @@
-"""Canny threshold selection: the adaptive sweep on the host runtime, and the
-fast single-shot estimator on the device.
+"""Canny threshold selection and edge maps: the adaptive sweep on the host
+runtime, and the fast single-shot estimator on the device.
 
 The counterpart of the JAX package's `ops/canny.py`: its native path, where
-the C++ runtime analyses the image and scores the 20 (low, high) candidates,
-and its `fast_edges` mode, which blends intensity-percentile and
-gradient-percentile thresholds without a sweep.
+the C++ runtime analyses the image and scores the 20 (low, high) candidates
+(`select_thresholds`, `hysteresis_host`, `get_edge_map` of the
+reference-shaped loop), and its `fast_edges` mode, which blends
+intensity-percentile and gradient-percentile thresholds without a sweep.
+Without the runtime the host functions raise naming ROADMAP A13: the JAX
+package's device Canny is not ported.
 """
 
 from __future__ import annotations
@@ -20,9 +23,40 @@ from roibasedimagecompression_torch.ops import hist as H
 
 def _select_thresholds_native(image_rgb: np.ndarray):
     """(low, high): native analysis + native candidate scoring."""
+    native.require("Canny threshold selection")
     gray, mag, nms, cands = native.canny_analysis(image_rgb)
     best = native.score_candidates(gray, mag, nms, cands)
     return float(cands[best][0]), float(cands[best][1])
+
+
+def select_thresholds(image_rgb: np.ndarray):
+    """Adaptive thresholds and the colour gradient: (low, high, mag (h, w)
+    float32, nms (h, w) bool), the host runtime's analysis and scoring."""
+    low, high = _select_thresholds_native(image_rgb)
+    mag_c, nms_c = native.gradient_nms_rgb(image_rgb)
+    return low, high, mag_c.astype(np.float32), nms_c
+
+
+def hysteresis_host(mag: np.ndarray, nms: np.ndarray, low, high) -> np.ndarray:
+    """Hysteresis by union-find over the weak graph: the 8-connected
+    components of nms & (mag > low) that hold a strong pixel (mag > high)."""
+    native.require("Canny hysteresis")
+    weak = nms & (mag > low)
+    labels, num, _ = native.cc_label(weak, connectivity=8)
+    if num == 0:
+        return np.zeros(mag.shape, bool)
+    strong = nms & (mag > high)
+    keep = np.zeros(num + 1, bool)
+    keep[labels[strong]] = True
+    keep[0] = False
+    return keep[labels]
+
+
+def get_edge_map(image_rgb: np.ndarray):
+    """Adaptive Canny: the best-scoring (low, high) of the gray image, then
+    Canny on the RGB image.  Returns (edges (h, w) bool, (low, high))."""
+    low, high, mag_c, nms_c = select_thresholds(image_rgb)
+    return hysteresis_host(mag_c, nms_c, low, high), (float(low), float(high))
 
 
 def select_thresholds_pair(image_rgb: np.ndarray):

@@ -7,6 +7,10 @@ ops/cuda/epscc.py).  k-means reproduces the JAX package's `ops/cluster.kmeans`:
 k-means++ (or seeded random) initial centres drawn with JAX's threefry bits
 (ops/prng.py), the expanded |a|^2 + |b|^2 - 2ab distance with XLA's fused
 multiply-adds, first-index argmin and early-exit Lloyd.
+
+`kmeans_host` and `eps_components_host` are the one-problem wrappers of the
+reference-shaped encode loop: on a CUDA device the eps components run the
+loop kernel (ops/cuda/epscc.py), on the CPU the plain sweep.
 """
 
 from __future__ import annotations
@@ -206,3 +210,43 @@ def kmeans_host_many(problems: list, device, *, seed: int = 42, iters: int = 25)
         )
         out.append(labels[0, :n].cpu().numpy())
     return out
+
+
+def kmeans_host(points, k: int, device, *, seed: int = 42, iters: int = 25) -> np.ndarray:
+    """k-means labels (numpy int32) of one (n, 3) problem, padded to a power
+    of two with k-means++ when the padded k is at most 256: the JAX package's
+    `kmeans_host`, whose arithmetic is that of its `kmeans_host_many`."""
+    return kmeans_host_many([(points, k)], device, seed=seed, iters=iters)[0]
+
+
+def eps_components_host(points, eps: float, device, groups=None) -> np.ndarray:
+    """eps-graph component labels (numpy int32) of one (n, 3) row of integer
+    colours: each component labelled by its least point index.
+
+    On a CUDA device the row is padded to a power of two, as the JAX package
+    pads it, and takes one launch of the loop kernel (kernel 2, the
+    counterpart of the JAX package's `eps_components_pallas`); on the CPU the
+    plain sweep.  The labels are the same on both, and equal to both of the
+    JAX package's routes (its XLA sweep and its Pallas kernel).  `groups`
+    (n,) int32, optional: edges join equal groups only.
+    """
+    pts = np.asarray(points, np.float32).reshape(-1, 3)
+    n = pts.shape[0]
+    if n == 0:
+        return np.zeros(0, np.int32)
+    dev = torch.device(device)
+    g = np.zeros(n, np.int32) if groups is None else np.asarray(groups, np.int32)
+    if dev.type != "cuda":
+        return eps_components(torch.from_numpy(np.ascontiguousarray(pts)), eps,
+                              torch.ones(n, dtype=torch.bool), torch.from_numpy(g)).numpy()
+    n_pad = _bucket(n)
+    rows = np.zeros((1, n_pad, 3), np.float32)
+    rows[0, :n] = pts
+    grp = np.full((1, n_pad), -1, np.int32)
+    grp[0, :n] = g
+    valid = torch.arange(n_pad, device=dev)[None, :] < n
+    eps2 = torch.tensor([np.float32(eps) ** 2], dtype=torch.float32, device=dev)
+    labels, _ = EPS.eps_components_rows(
+        torch.from_numpy(rows).to(dev), valid, torch.from_numpy(grp).to(dev), eps2
+    )
+    return labels[0, :n].cpu().numpy()

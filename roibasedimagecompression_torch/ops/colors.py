@@ -31,6 +31,13 @@ def fma32(a, b, c) -> torch.Tensor:
     return (a64 * b64 + c64).float()
 
 
+def div32(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d in float32, a true division on every device: PyTorch's CUDA
+    kernel computes a division by a Python scalar as a product with the
+    scalar's reciprocal, so the divisor goes in as a tensor."""
+    return x / torch.tensor(d, dtype=torch.float32, device=x.device)
+
+
 def _f32(x) -> float:
     return float(np.float32(x))
 
@@ -66,12 +73,6 @@ _RGB2XYZ = (
     (0.019334, 0.119193, 0.950227),
 )
 _XYZ_REF = (0.95047, 1.0, 1.08883)
-
-
-def _pow32(x: torch.Tensor, exponent: float) -> torch.Tensor:
-    """float32 x ** exponent through float64, rounded once (correctly rounded
-    but for one value in 2^28; the 8-bit Lab inverse below uses it)."""
-    return torch.pow(x.double(), exponent).float()
 
 
 # glibc's powf (2.28 and later, the code XLA's CPU backend calls for a float32
@@ -201,31 +202,6 @@ def _lab_f(rgb: torch.Tensor):
     return out
 
 
-def _lab_f_cv2(rgb: torch.Tensor):
-    """f(X/Xn), f(Y/Yn), f(Z/Zn) as the 8-bit conversion below needs them:
-    inside the JAX package's enhancer graph XLA fuses rgb_to_lab otherwise
-    than alone, and this arithmetic (correctly rounded powers, products added
-    in order) is the one that equals it there on the test fixtures."""
-    s = rgb.float() * _INV255
-    linear = torch.where(
-        s > 0.04045,
-        _pow32((s + 0.055) * _f32(1.0 / 1.055), 2.4),
-        s * _f32(1.0 / 12.92),
-    )
-    l0, l1, l2 = linear[..., 0], linear[..., 1], linear[..., 2]
-    out = []
-    for row, ref in zip(_RGB2XYZ, _XYZ_REF):
-        xyz = l0 * _f32(row[0]) + l1 * _f32(row[1]) + l2 * _f32(row[2])
-        t = xyz * _f32(1.0 / ref) if ref != 1.0 else xyz
-        f = torch.where(
-            t > 0.008856,
-            _pow32(t.clamp_min(0.0), 1.0 / 3.0),
-            t * 7.787 + _f32(16.0 / 116.0),
-        )
-        out.append(f)
-    return out
-
-
 def rgb_to_lab(rgb: torch.Tensor) -> torch.Tensor:
     """skimage.color.rgb2lab for uint8 RGB -> float32 (..., 3) Lab; the JAX
     package's bits on the CPU and on the card."""
@@ -236,19 +212,40 @@ def rgb_to_lab(rgb: torch.Tensor) -> torch.Tensor:
     return torch.stack([L, a, b], dim=-1)
 
 
-# XLA's CPU code calls glibc's `powf` (and takes `cbrt` as powf(|x|,
-# float32(1/3))), which is not correctly rounded; _pow32 is.  So the two 8-bit
-# Lab conversions below differ from the JAX functions by one unit on a few
-# inputs, measured over all 2^24 of them: 491 colours for rgb_to_lab_cv2, 108
-# Lab triples for lab_cv2_to_rgb (tests/test_torch_eval.py holds a sample).
+# The 8-bit conversions below are the enhancer's (models/enhance.py).  The
+# JAX package's enhancer calls them op by op, not jitted, so each jnp op is
+# its own XLA computation: every step rounded alone (no fused multiply-adds,
+# no folded reciprocals: a division by a Python scalar is a true division),
+# `pow` and `cbrt` through glibc's powf, and the 3x3 products in Eigen's order
+# (rows 0 and 1 added in order, row 2 a fused chain), as in `_lab_f`.  Over
+# all 2^24 inputs of each direction they equal the JAX functions called so,
+# bit for bit (tests/test_torch_eval.py).  The same functions jitted alone
+# differ from that in 465 and 243 inputs: XLA fuses them otherwise.
+
+def _dot3(v, m, j: int) -> torch.Tensor:
+    """Row j of a float32 3x3 product of v (..., 3) with m, in Eigen's order."""
+    a, b, c = (float(np.float32(m[j][k])) for k in range(3))
+    if j < 2:
+        return (v[0] * a + v[1] * b) + v[2] * c
+    return fma32(v[2], c, fma32(v[1], b, v[0] * a))
+
 
 def rgb_to_lab_cv2(rgb: torch.Tensor) -> torch.Tensor:
     """cv2.cvtColor(..., COLOR_RGB2LAB) for uint8: 8-bit scaled CIELAB, L
     mapped to 0..255 (L * 255/100), a and b offset by +128; uint8."""
-    fx, fy, fz = _lab_f_cv2(rgb)
-    L = fma32(fy, 116.0, -16.0) * _f32(255.0 / 100.0)
-    a = fma32(fx - fy, 500.0, 128.0)
-    b = fma32(fy - fz, 200.0, 128.0)
+    s = div32(rgb.float(), 255.0)
+    linear = torch.where(s > _f32(0.04045), powf32(div32(s + _f32(0.055), 1.055), 2.4),
+                         div32(s, 12.92))
+    lin = (linear[..., 0], linear[..., 1], linear[..., 2])
+    f = []
+    for j in range(3):
+        t = div32(_dot3(lin, _RGB2XYZ, j), _XYZ_REF[j])
+        cube_root = powf32(t.clamp_min(_TINY32), 1.0 / 3.0)
+        f.append(torch.where(t > _f32(0.008856), cube_root,
+                             t * _f32(7.787) + _f32(16.0 / 116.0)))
+    L = (f[1] * 116.0 - 16.0) * _f32(255.0 / 100.0)
+    a = (f[0] - f[1]) * 500.0 + 128.0
+    b = (f[1] - f[2]) * 200.0 + 128.0
     return torch.clamp(torch.round(torch.stack([L, a, b], dim=-1)), 0, 255).to(torch.uint8)
 
 
@@ -264,22 +261,20 @@ _XYZ2RGB = tuple(float.fromhex(h) for h in (
 def lab_cv2_to_rgb(lab_u8: torch.Tensor) -> torch.Tensor:
     """Inverse of rgb_to_lab_cv2: 8-bit Lab -> uint8 RGB."""
     x = lab_u8.float()
-    fy = fma32(x[..., 0], _f32(100.0 / 255.0), 16.0) * _f32(1.0 / 116.0)
-    fx = fma32(x[..., 1] - 128.0, _f32(1.0 / 500.0), fy)
-    fz = fma32(128.0 - x[..., 2], _f32(1.0 / 200.0), fy)
+    fy = div32(x[..., 0] * _f32(100.0 / 255.0) + 16.0, 116.0)
+    fx = fy + div32(x[..., 1] - 128.0, 500.0)
+    fz = fy - div32(x[..., 2] - 128.0, 200.0)
     eps = _f32(6.0 / 29.0)
 
     def inv_f(f):
-        return torch.where(f > eps, (f * f) * f, (f - _f32(16.0 / 116.0)) * _f32(1.0 / 7.787))
+        return torch.where(f > eps, f * (f * f), div32(f - _f32(16.0 / 116.0), 7.787))
 
     xyz = (inv_f(fx) * _f32(_XYZ_REF[0]), inv_f(fy), inv_f(fz) * _f32(_XYZ_REF[2]))
-    linear = torch.stack([
-        fma32(xyz[2], _XYZ2RGB[3 * j + 2], fma32(xyz[1], _XYZ2RGB[3 * j + 1], xyz[0] * _XYZ2RGB[3 * j]))
-        for j in range(3)
-    ], dim=-1)
+    m = [_XYZ2RGB[3 * j : 3 * j + 3] for j in range(3)]
+    linear = torch.stack([_dot3(xyz, m, j) for j in range(3)], dim=-1)
     s = torch.where(
-        linear > 0.0031308,
-        fma32(_f32(1.055), _pow32(torch.clamp_min(linear, 1e-12), 1 / 2.4), _f32(-0.055)),
-        linear * 12.92,
+        linear > _f32(0.0031308),
+        powf32(torch.clamp_min(linear, _f32(1e-12)), 1.0 / 2.4) * _f32(1.055) - _f32(0.055),
+        linear * _f32(12.92),
     )
     return torch.clamp(torch.round(s * 255.0), 0, 255).to(torch.uint8)

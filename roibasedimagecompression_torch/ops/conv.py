@@ -1,9 +1,15 @@
-"""Separable filters over the two spatial axes of (B, H, W[, C]) tensors.
+"""Filters over the two spatial axes of (B, H, W[, C]) tensors.
 
 Written as reflect padding plus shifted adds in a fixed order, so the CPU
 and the card sum the taps in the same order (a cuDNN convolution would pick
 its own order, and TF32 unless disabled).  `reflect` is numpy's mode of that
 name (mirror without repeating the edge, cv2's BORDER_REFLECT_101).
+
+`box_density` adds its k*k taps in the order of the JAX package's CPU
+convolution, read from XLA's CPU run (Eigen's contraction of the image
+patches): see `_eigen_lanes` and `_eigen_k_shards`.  The gap-bridging reach
+maps (`conv2d_same_multi`) are only ever tested > 0, so they are computed
+exactly as hit tests.
 """
 
 from __future__ import annotations
@@ -11,11 +17,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from roibasedimagecompression_torch.ops import colors as COL
+
+
+def _reflect_index(n: int, before: int, after: int) -> np.ndarray:
+    """Source index of every position of an axis of n, reflect-padded by
+    (before, after): numpy's mode, repeated reflections included."""
+    i = np.arange(-before, n + after)
+    if n == 1:
+        return np.zeros_like(i)
+    m = np.mod(i, 2 * (n - 1))
+    return np.where(m >= n, 2 * (n - 1) - m, m)
+
 
 def _pad_axis(x: torch.Tensor, axis: int, before: int, after: int) -> torch.Tensor:
     """Reflect-pad one axis (axis 1 = rows, 2 = cols of a (B, H, W, ...) tensor)."""
-    n = x.shape[axis]
-    idx = list(range(before, 0, -1)) + list(range(n)) + list(range(n - 2, n - 2 - after, -1))
+    idx = _reflect_index(x.shape[axis], before, after)
     return x.index_select(axis, torch.as_tensor(idx, device=x.device))
 
 
@@ -82,3 +99,167 @@ def gaussian_blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
     taps = _taps9_xla if len(k) == 9 else _taps
     return taps(taps(x, 1, k), 2, k)
 
+
+
+# ---------------------------------------------------------------------------
+# Box density in the order of XLA's CPU convolution.
+#
+# XLA runs the JAX package's single-channel convolution as an Eigen
+# contraction of the k*k image patches with the kernel (8-float packets).
+# Each output pixel adds its taps, in row-major window order, into 8 lanes
+# (tap t into lane t % 8, one after another), folds the lanes as
+# ((l0 + l1) + (l4 + l5)) + ((l2 + l3) + (l6 + l7)) and adds the last k*k % 8
+# taps one by one.  When k*k / 8 > 32 (k = 25), Eigen shards the taps across
+# the 8 threads of an 8-core host: blocks of max(96, ceil8(k*k / 8)) taps,
+# each summed as above, grouped four by four and combined as
+# (b0 + b1) + (b2 + b3) (b0 + ((b1 + b2) + b3) on the last hw % 8 pixels,
+# its scalar loop), a shorter group in order, then the groups as the
+# blocks.  Read with probes of one 2^24 and two 1.0 values in a window of a
+# ones-kernel convolution (the 1.0s survive iff they meet before the 2^24),
+# then checked on random binary maps of many sizes.  Like SLIC's centre
+# sums (ops/slic.py) this order follows an 8-thread host.
+# ---------------------------------------------------------------------------
+
+_LANES = 8
+_SHARDS = 8
+
+
+def _eigen_lanes(tap, taps: range) -> torch.Tensor:
+    """Sum of tap(t) over `taps` in Eigen's lane order."""
+    d8 = len(taps) // _LANES * _LANES
+    lanes = [None] * _LANES
+    for i in range(d8):
+        v = tap(taps[i])
+        j = i % _LANES
+        lanes[j] = v if lanes[j] is None else lanes[j] + v
+    if d8:
+        acc = ((lanes[0] + lanes[1]) + (lanes[4] + lanes[5])) + (
+            (lanes[2] + lanes[3]) + (lanes[6] + lanes[7])
+        )
+    else:
+        acc = torch.zeros_like(tap(taps[0]))
+    for i in range(d8, len(taps)):
+        acc = acc + tap(taps[i])
+    return acc
+
+
+def _add4(dst, a, b, c, tail: int):
+    """Eigen's addAllToBuffer: (dst + a) + (b + c) over whole packets, and
+    dst + ((a + b) + c) over the last `tail` elements of the flat buffer."""
+    out = (dst + a) + (b + c)
+    if tail:
+        flat, d, a_, b_, c_ = (t.reshape(-1) for t in (out, dst, a, b, c))
+        flat[-tail:] = d[-tail:] + ((a_[-tail:] + b_[-tail:]) + c_[-tail:])
+    return out
+
+
+def _eigen_k_shards(tap, n_taps: int, n_out: int) -> torch.Tensor:
+    """Sum of tap(0..n_taps-1) as Eigen's contraction sharded over the taps
+    on 8 threads (n_out: output elements, whose last n_out % 8 take the
+    scalar loop of the buffer additions)."""
+    per_thread = -(-n_taps // _SHARDS)
+    size = min(n_taps, max(12 * _LANES, -(-per_thread // _LANES) * _LANES))
+    blocks = [_eigen_lanes(tap, range(s, min(s + size, n_taps))) for s in range(0, n_taps, size)]
+    tail = n_out % _LANES
+
+    def reduce(parts):
+        if len(parts) == 4:
+            return _add4(*parts, tail)
+        dst = parts[0]
+        for part in parts[1:]:
+            dst = dst + part
+        return dst
+
+    ranges = [reduce(blocks[s : s + 4]) for s in range(0, len(blocks), 4)]
+    dst, i = ranges[0], 1
+    while i + 2 < len(ranges):
+        dst = _add4(dst, ranges[i], ranges[i + 1], ranges[i + 2], tail)
+        i += 3
+    while i < len(ranges):
+        dst = dst + ranges[i]
+        i += 1
+    return dst
+
+
+def _reflect_pad2(x: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
+    """An (H, W) map reflect-padded for a SAME-size (kh, kw) correlation."""
+    ph, pw = kh // 2, kw // 2
+    return _pad_axis(_pad_axis(x[None], 1, ph, kh - 1 - ph), 2, pw, kw - 1 - pw)[0]
+
+
+def conv2d_same(x: torch.Tensor, kernel) -> torch.Tensor:
+    """Single-channel 2-D correlation of an (H, W) map, SAME size, reflect
+    borders (cv2's BORDER_REFLECT_101), its taps added in the order of XLA's
+    CPU convolution.  XLA fuses each product into its addition; here
+    products are rounded first, so the bits are XLA's wherever the products
+    are exact (0/1 maps, as `box_density`'s)."""
+    kern = np.asarray(kernel, np.float32)
+    kh, kw = kern.shape
+    x = x.float()
+    h, w = x.shape
+    p = _reflect_pad2(x, kh, kw)
+    flat = kern.reshape(-1)
+    uniform = bool((flat == flat[0]).all())
+    if uniform:
+        p = p * float(flat[0])
+
+    def tap(t):
+        dy, dx = divmod(t, kw)
+        v = p[dy : dy + h, dx : dx + w]
+        return v if uniform else v * float(flat[t])
+
+    n_taps = kh * kw
+    if n_taps // _SHARDS > 32:
+        return _eigen_k_shards(tap, n_taps, h * w)
+    return _eigen_lanes(tap, range(n_taps))
+
+
+def box_density(binary: torch.Tensor, kernel_size: int) -> torch.Tensor:
+    """Local density of non-zero pixels of an (H, W) map: the mean over a
+    k x k window, reflect borders (cv2.filter2D with ones(k, k) / k^2); the
+    input is scaled to [0, 1] when its maximum exceeds 1.  For 0/1 maps (the
+    codec's only ones) the float32 sums are the JAX package's CPU bits."""
+    x = binary.float()
+    if x.numel() and bool(x.max() > 1.0):
+        x = COL.div32(x, 255.0)
+    k = int(kernel_size)
+    weight = np.float32(1.0) / np.float32(k * k)
+    return conv2d_same(x, np.full((k, k), weight, np.float32))
+
+
+def conv2d_same_multi(x: torch.Tensor, kernels: np.ndarray) -> torch.Tensor:
+    """Where each of N same-size correlations of an (H, W) map with
+    non-negative (kh, kw) kernels is positive: (N, H, W) bool, SAME size,
+    reflect borders.  The gap-bridging stage reads its reach maps only as
+    `> 0`, and with non-negative inputs and weights a sum is positive exactly
+    when one product is, so this tests hits (OR of the shifted map over each
+    kernel's non-zero taps) and is exact on every device."""
+    kernels = np.asarray(kernels)
+    n, kh, kw = kernels.shape
+    p = _reflect_pad2(x > 0, kh, kw)
+    h, w = x.shape
+    out = torch.zeros((n, h, w), dtype=torch.bool, device=x.device)
+    for i in range(n):
+        for dy, dx in zip(*np.nonzero(kernels[i] > 0)):
+            out[i] |= p[dy : dy + h, dx : dx + w]
+    return out
+
+
+def directional_reach_kernels(max_gap: int, local_window: int) -> np.ndarray:
+    """The 8 gap-bridging kernels (4 opposite-direction pairs): each marks
+    the cells 1..max_gap along one direction inside a (2 * local_window +
+    1)^2 window, normalized to sum 1.  (8, k, k) float32 in pair order [lr0,
+    lr1, ud0, ud1, d0, d1, a0, a1]."""
+    size = local_window * 2 + 1
+    dirs = [(-1, 0), (1, 0), (0, -1), (0, 1), (-1, -1), (1, 1), (-1, 1), (1, -1)]
+    kernels = np.zeros((8, size, size), np.float32)
+    c = local_window
+    for i, (dx, dy) in enumerate(dirs):
+        for d in range(1, max_gap + 1):
+            x, y = c + dx * d, c + dy * d
+            if 0 <= x < size and 0 <= y < size:
+                kernels[i, y, x] = 1.0
+        s = kernels[i].sum()
+        if s > 0:
+            kernels[i] /= s
+    return kernels

@@ -1,7 +1,8 @@
-"""Threshold statistics: masked percentile with linear interpolation.
+"""Threshold statistics: masked percentile with linear interpolation, and
+the masked mean.
 
-The counterpart of the JAX package's `ops/hist.py masked_percentile`, which
-replaces the reference's np.percentile calls on masked gradient magnitudes.
+The counterpart of the JAX package's `ops/hist.py masked_percentile` and
+`masked_mean`.
 """
 
 from __future__ import annotations
@@ -34,3 +35,15 @@ def masked_percentile(values: torch.Tensor, mask: torch.Tensor, q: float) -> tor
     above = torch.gather(sorted_v, -1, hi)
     val = fma32(above, frac, below * (1.0 - frac))
     return torch.where(n > 0, val, torch.zeros_like(val)).squeeze(-1)
+
+
+def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """float32 mean of `values` where `mask`, 0 where the mask is empty.
+
+    Plain float32 sums, not XLA's order: its one caller (the ROI masks'
+    density threshold, at most 0.01) compares it with box densities of edge
+    pixels, which are at least 1/9, so its last bits cannot change a mask.
+    """
+    m = mask.reshape(-1).float()
+    v = values.reshape(-1).float()
+    return (v * m).sum() / torch.clamp(m.sum(), min=1.0)

@@ -263,6 +263,25 @@ def _compact_labels(labels: np.ndarray, mask: np.ndarray) -> np.ndarray:
     return out
 
 
+def slic(
+    image_rgb: np.ndarray,
+    mask: np.ndarray,
+    n_segments: int,
+    device,
+    compactness: float = 10.0,
+    sigma: float = 1.0,
+    iters: int = 10,
+    min_size_factor: float = 0.5,
+) -> np.ndarray:
+    """Masked SLIC of one region: (h, w, 3) uint8 + (h, w) bool -> (h, w)
+    int32 labels (0 outside the mask, 1..n inside); `slic_many` at one row,
+    so kernel 1 runs at (1, MP, K)."""
+    return slic_many(
+        [image_rgb], [mask], [n_segments], device,
+        compactness=compactness, sigma=sigma, iters=iters, min_size_factor=min_size_factor,
+    )[0]
+
+
 def slic_many(
     images: list,
     masks: list,

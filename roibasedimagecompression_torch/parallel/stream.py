@@ -117,7 +117,7 @@ def _segment_stack(batch: np.ndarray, config: cfg.CodecConfig, device,
     # 2. Batched segmentation -> one stacked tall segment map.
     with stage_timer("s.extract"):
         regions_per_image = [
-            CODEC._extract_and_assign(roi_masks[k], nonroi_masks[k], min_size)
+            CODEC._extract_and_assign(batch[k], roi_masks[k], nonroi_masks[k], config, min_size)
             for k in range(b)
         ]
     if frontend_done is not None:

@@ -77,7 +77,9 @@ def test_port_imports_no_jax():
     assert "roibasedimagecompression_torch.parallel.stream" in modules
     assert "roibasedimagecompression_torch.ops.pairs" in modules
     assert {"roibasedimagecompression_torch.__main__", "roibasedimagecompression_torch.eval.report",
-            "roibasedimagecompression_torch.models.enhance"} <= set(modules)
+            "roibasedimagecompression_torch.models.enhance", "roibasedimagecompression_torch.models.roi",
+            "roibasedimagecompression_torch.models.quantize", "roibasedimagecompression_torch.ops.morphology",
+            "roibasedimagecompression_torch.ops.distance"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
@@ -94,6 +96,8 @@ def test_port_imports_no_jax():
         "fast = rtt.CodecConfig.low_latency()\n"
         "assert stream.encode_many([img], fast, device='cpu') == [rtt.encode(img, fast, device='cpu')]\n"
         "assert stream.encode_stream([[img], [img]], device='cpu') == [[data], [data]]\n"
+        "loop = rtt.encode(img, rtt.CodecConfig(batched=False), device='cpu')\n"
+        "assert rtt.decode(loop).shape == img.shape\n"
         "assert metrics.quality_metrics(img, out, device='cpu')['psnr'] > 28\n"
         "import tempfile, os\n"
         "from roibasedimagecompression_torch import __main__ as cli\n"
@@ -163,6 +167,8 @@ def test_cuda_entry_point_raises_without_a_card():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         rtt.encode(np.zeros((64, 64, 3), np.uint8))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rtt.encode(np.zeros((64, 64, 3), np.uint8), rtt.CodecConfig(batched=False))
 
 
 def test_native_source_is_byte_identical():

@@ -111,7 +111,7 @@ def _t2_canvas(img):
     config = tcfg.CodecConfig()
     low, high = canny.select_thresholds_pair(img)
     roi, nonroi = roi_fused.roi_masks_fast(img, config, low, high)
-    regs = TCODEC._extract_and_assign(roi, nonroi, tcfg.min_region_size(img.size))
+    regs = TCODEC._extract_and_assign(img, roi, nonroi, config, tcfg.min_region_size(img.size))
     seg_map, seg_q, seg_g = TCODEC.build_segment_map(img, *regs, config, CPU)
     t1 = TQB.tier1_colors(img, seg_map, seg_q, CPU, split_method=config.split_method,
                           split_margin=config.split_margin)

@@ -111,7 +111,7 @@ def _torch_seg(img, device):
 
     low, high = canny.select_thresholds_pair(img)
     roi, nonroi = roi_fused.roi_masks_fast(img, config, low, high)
-    regs = TCODEC._extract_and_assign(roi, nonroi, tcfg.min_region_size(img.size))
+    regs = TCODEC._extract_and_assign(img, roi, nonroi, config, tcfg.min_region_size(img.size))
     return TCODEC.build_segment_map(img, *regs, config, device)[0]
 
 
@@ -171,11 +171,15 @@ def _coarse_palette_indices(img):
 
 def test_unported_options_raise(monkeypatch):
     img = synthetic_image(1, 64, 64)
-    for cfg, item in ((tcfg.CodecConfig(batched=False), "A12b"),
-                      (tcfg.CodecConfig(region_fusion=True), "A12c"),
-                      (tcfg.CodecConfig(weighted_split=True), "A12c")):
+    for cfg, item in ((tcfg.CodecConfig(region_fusion=True), "A12c"),
+                      (tcfg.CodecConfig(weighted_split=True), "A12c"),
+                      (tcfg.CodecConfig(batched=False, region_fusion=True), "A12c"),
+                      (tcfg.CodecConfig(batched=False, weighted_split=True), "A12c")):
         with pytest.raises(NotImplementedError, match=item):
             rtt.encode(img, cfg, device="cpu")
+    # batched=False, the reference-shaped loop, is ported: it encodes.
+    loop = rtt.encode(img, tcfg.CodecConfig(batched=False), device="cpu")
+    assert rtt.decode(loop).shape == img.shape
     # fill_black_holes and the canvas tiers path are ported: they encode.
     filled = rtt.encode(img, tcfg.CodecConfig(fill_black_holes=50), device="cpu")
     assert rtt.decode(filled).shape == img.shape

@@ -55,7 +55,9 @@ def test_frontend_matches_jax(seed, h, w):
     troi_mask, tnon_mask = TROI.roi_masks_fast(img, tcfg.CodecConfig(), low, high)
     np.testing.assert_array_equal(troi_mask, roi)
     np.testing.assert_array_equal(tnon_mask, nonroi)
-    troi, tnon = TCODEC._extract_and_assign(troi_mask, tnon_mask, tcfg.min_region_size(img.size))
+    troi, tnon = TCODEC._extract_and_assign(
+        img, troi_mask, tnon_mask, tcfg.CodecConfig(), tcfg.min_region_size(img.size)
+    )
     for a, b in ((troi, jroi), (tnon, jnon)):
         assert len(a) == len(b)
         for ra, rb in zip(a, b):

@@ -332,7 +332,7 @@ def _seg_maps(imgs, tconfig, jconfig):
     ms = tcfg.min_region_size(imgs[0].size)
     ours = one(lambda b: TCANNY.fast_thresholds_many(b, CPU),
                {"pair": TCANNY.select_thresholds_pair, "masks": TROI.roi_masks_fast},
-               lambda im, r, n, c: TCODEC._extract_and_assign(r, n, ms),
+               lambda im, r, n, c: TCODEC._extract_and_assign(im, r, n, c, ms),
                lambda i, r, c: TCODEC.build_segment_maps_many(i, r, c, CPU), tconfig)
     theirs = one(JCANNY.fast_thresholds_many,
                  {"pair": JCANNY.select_thresholds_pair, "masks": JROI.roi_masks_fast},
@@ -403,8 +403,10 @@ def test_encode_many_argument_laws(monkeypatch):
     assert TSTREAM.encode_many([], device="cpu") == []
     with pytest.raises(ValueError, match="same-shape"):
         TSTREAM.encode_many([a, b], device="cpu")
-    with pytest.raises(NotImplementedError, match="A12b"):
-        TSTREAM.encode_many([a], tcfg.CodecConfig(batched=False), device="cpu")
+    # The batch entry points ignore `batched`, as the JAX package's do.
+    batched = TSTREAM.encode_many([a], device="cpu")
+    assert TSTREAM.encode_many([a], tcfg.CodecConfig(batched=False), device="cpu") == batched
+    assert TSTREAM.encode_stream([[a]], tcfg.CodecConfig(batched=False), device="cpu") == [batched]
     with pytest.raises(NotImplementedError, match="A12c"):
         TSTREAM.encode_many([a], tcfg.CodecConfig(region_fusion=True), device="cpu")
     # The canvas tiers path is ported: fill_black_holes and
