@@ -40,8 +40,8 @@ Phases, in order; any failed check exits non-zero:
      `counts`, the post-repair colors, the painted index map and the refit
      rows, all exact; sort, compact, paint and refit times by CUDA events;
   7. batch: `encode_many` of those 8 images at `CodecConfig()` on the card,
-     counts read around it: bytes of the first 4 against the CPU `encode_many`
-     of those 4 (equal, else segment maps >= 99.5 %, |dPSNR| <= 0.05 dB,
+     counts read around it: bytes of the first 2 against the CPU `encode_many`
+     of those 2 (equal, else segment maps >= 99.5 %, |dPSNR| <= 0.05 dB,
      |size| <= 1 %), all 8 equal with
      RHCCQ_DEVICE_PAIRS=0, every image above 28 dB, PSNR and SSIM, stage
      seconds, launch shapes, idle share; the same once at
@@ -71,11 +71,20 @@ Phases, in order; any failed check exits non-zero:
      each byte for byte equal to the CPU encode of the same image; stage
      seconds; and the box filter of the ROI masks (k = 3, 15, 25, the order
      of XLA's CPU convolution) on the card against the CPU, bit for bit;
- 12. cover: every (form, B, MP, K) and (B, N) that phases 5, 7, 8, 9, 10 and
-     11 launched and phases 3 and 4 did not check is checked against the
+ 12. options and the codec without its runtime: on phase 5's first image,
+     `encode` at region_fusion=True and at weighted_split=True and the loop
+     at both, and `encode_debug` (every intermediate), each against the CPU,
+     byte for byte; then, in a child process (`--nonative-child`) under
+     RHCCQ_NATIVE=0 (read once per process): `encode` of that image,
+     `encode_many` of the batch's first two and the loop, each against the
+     same call on the CPU under the switch, byte for byte, with counts,
+     stage seconds and connected-components passes read around each, and
+     the propagation's card time per pass;
+ 13. cover: every (form, B, MP, K) and (B, N) that phases 5 and 7-12
+     launched and phases 3 and 4 did not check is checked against the
      plain version now, so no path runs a kernel at a shape the run has not
      held;
- 13. one JSON line of kernel measurements, then the card line, then the
+ 14. one JSON line of kernel measurements, then the card line, then the
      final {"ok": true, ...} line.
 
 Without CUDA, or without the package beside this file, it exits non-zero
@@ -716,7 +725,7 @@ def check_pairs(device, images):
     return rec
 
 
-def run_batch(device, images, config, compare_cpu=True, profile=True, n_cpu=4):
+def run_batch(device, images, config, compare_cpu=True, profile=True, n_cpu=2):
     """The batch path: one warm `encode_many`, the counts read around it.
     The first `n_cpu` images are held to the CPU `encode_many` of those
     images (an image's bytes do not depend on the rest of its batch, and a
@@ -1046,6 +1055,157 @@ def run_loop(device, image, n_cpu=1):
     return {"runs": runs, "box_ms": box}
 
 
+def run_options(device, image):
+    """Region fusion and the weighted split (ROADMAP A12c) and
+    `encode_debug` on `image`: `encode` at region_fusion=True and at
+    weighted_split=True, the loop at both, counts and stage seconds read
+    around each card run, each byte for byte equal to the CPU encode; then
+    `encode_debug` on the card against the CPU, every intermediate equal."""
+    import numpy as np
+
+    import roibasedimagecompression_torch as rtt
+    from roibasedimagecompression_torch import config as cfg
+    from roibasedimagecompression_torch.models import codec
+    from roibasedimagecompression_torch.utils import timing
+
+    runs = {}
+    configs = (("encode, region_fusion=True", cfg.CodecConfig(region_fusion=True)),
+               ("encode, weighted_split=True", cfg.CodecConfig(weighted_split=True)),
+               ("loop, region_fusion=True, weighted_split=True",
+                cfg.CodecConfig(batched=False, region_fusion=True, weighted_split=True)))
+    for label, config in configs:
+        reset_counts()
+        t0 = time.perf_counter()
+        data = rtt.encode(image, config, device=device)
+        seconds = time.perf_counter() - t0
+        launches, shapes = read_counts()
+        for name in ("slic_assign", "eps_components"):
+            check(device.type != "cuda" or launches[name] > 0, f"{label} launched {name} no time")
+        rec = decode_and_score([image], [data], device)[0]
+        rec.update({"seconds": seconds, "launches": launches, "shapes": shapes,
+                    "stages": {k: v["seconds"] for k, v in timing.stage_report().items()}})
+        t0 = time.perf_counter()
+        ref = rtt.encode(image, config, device="cpu")
+        rec["cpu_seconds"] = time.perf_counter() - t0
+        check(data == ref, f"{label} on {device} wrote other bytes than on the CPU")
+        runs[label] = rec
+    reset_counts()
+    t0 = time.perf_counter()
+    dbg = codec.encode_debug(image, device=device)
+    seconds = time.perf_counter() - t0
+    launches, shapes = read_counts()
+    t0 = time.perf_counter()
+    ref = codec.encode_debug(image, device="cpu")
+    cpu_seconds = time.perf_counter() - t0
+    for key, want in ref.items():
+        got = dbg[key]
+        same = got == want if key == "data" else bool(np.array_equal(got, want))
+        check(same, f"encode_debug's {key} on {device} differs from the CPU's")
+    rec = decode_and_score([image], [dbg["data"]], device)[0]
+    rec.update({"seconds": seconds, "cpu_seconds": cpu_seconds, "launches": launches, "shapes": shapes,
+                "roi_share": float(np.mean(dbg["roi_mask"]))})
+    runs["encode_debug"] = rec
+    return runs
+
+
+def nonative_child(out_path: str) -> int:
+    """The `--nonative-child` process of phase 12: RHCCQ_NATIVE=0 is in its
+    environment (the switch is read once per process).  Runs `encode` of the
+    first 768x512 image, `encode_many` of the first two of the batch and the
+    loop on the first image, each on the card with counts, stage seconds and
+    connected-components passes read around it, each byte for byte equal to
+    the same call on the CPU; then times the propagation on the card per
+    pass.  Writes a JSON record to `out_path`."""
+    import torch
+
+    import roibasedimagecompression_torch as rtt
+    from roibasedimagecompression_torch import config as cfg
+    from roibasedimagecompression_torch import native
+    from roibasedimagecompression_torch.ops import canny
+    from roibasedimagecompression_torch.ops import cc as CC
+    from roibasedimagecompression_torch.ops import colors
+    from roibasedimagecompression_torch.parallel import stream as STREAM
+    from roibasedimagecompression_torch.utils import timing
+    from roibasedimagecompression_torch.utils.synthetic import synthetic_image
+
+    check(not native.available(), "RHCCQ_NATIVE=0 did not switch the runtime off")
+    device = torch.device("cuda")
+    images = [synthetic_image(100 + i, 512, 768) for i in range(2)]
+    loop = cfg.CodecConfig(batched=False)
+    runs = {}
+    for label, card, cpu in (
+        ("encode", lambda: rtt.encode(images[0], device=device),
+         lambda: rtt.encode(images[0], device="cpu")),
+        ("encode_many of 2", lambda: STREAM.encode_many(images, None, device),
+         lambda: STREAM.encode_many(images, None, "cpu")),
+        ("loop", lambda: rtt.encode(images[0], loop, device=device),
+         lambda: rtt.encode(images[0], loop, device="cpu")),
+    ):
+        reset_counts()
+        CC.PASSES[0] = 0
+        t0 = time.perf_counter()
+        data = card()
+        seconds = time.perf_counter() - t0
+        launches, shapes = read_counts()
+        passes = CC.PASSES[0]
+        stages = {k: round(v["seconds"], 4) for k, v in timing.stage_report().items()}
+        for name in ("slic_assign", "eps_components"):
+            check(launches[name] > 0, f"the run without the runtime ({label}) launched {name} no time")
+        t0 = time.perf_counter()
+        ref = cpu()
+        cpu_seconds = time.perf_counter() - t0
+        check(data == ref, f"without the runtime, {label} on the card wrote other bytes than on the CPU")
+        datas = data if isinstance(data, list) else [data]
+        rec = decode_and_score(images[: len(datas)], datas, device)
+        runs[label] = {"seconds": seconds, "cpu_seconds": cpu_seconds, "launches": launches,
+                       "shapes": shapes, "cc_passes": passes, "stages": stages,
+                       "psnr_db": [r["psnr_db"] for r in rec], "bpp": [r["bpp"] for r in rec]}
+    # The propagation's card time per pass: the first image's weak Canny
+    # graph (one map), and the 20 candidates' graphs of its gray image at
+    # once, as the threshold scoring runs them.
+    img = torch.from_numpy(images[0]).to(device)
+    low, high = canny.select_thresholds_pair(images[0], device)
+    mag, nms = canny.gradient_and_nms(img, rgb=True)
+    gray = colors.rgb_to_gray_cv2(img)
+    gmag, gnms = canny.gradient_and_nms(gray, rgb=False)
+    cands = canny.adaptive_thresholds(gray)
+    per_pass = {}
+    for label, weak in (("weak graph, 512x768", nms & (mag > low)),
+                        ("20 candidates, 20x512x768", gnms[None] & (gmag[None] > cands[:, 0, None, None]))):
+        CC.PASSES[0] = 0
+        CC.propagate_labels(weak)
+        passes = CC.PASSES[0]
+        ms = time_cuda(lambda: CC.propagate_labels(weak), reps=3, warmup=1)
+        per_pass[label] = {"passes": passes, "ms": ms, "ms_per_pass": ms / passes}
+    with open(out_path, "w") as f:
+        json.dump({"runs": runs, "cc": per_pass, "thresholds": [low, high],
+                   "launched_shapes": {k: sorted(v) for k, v in launched_shapes.items()}}, f)
+    return 0
+
+
+def run_nonative(deadline: float = 900.0) -> dict:
+    """Phase 12: `nonative_child` in a new process under RHCCQ_NATIVE=0; the
+    shapes it launched join the cover phase."""
+    fd, out_path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--nonative-child", out_path],
+            env=dict(os.environ, RHCCQ_NATIVE="0"), capture_output=True, text=True,
+            timeout=deadline, cwd=HERE,
+        )
+        for line in proc.stdout.splitlines():
+            print(f"[nonative child] {line}")
+        check(proc.returncode == 0, f"the run without the runtime failed:\n{proc.stderr[-3000:]}")
+        with open(out_path) as f:
+            rec = json.load(f)
+    finally:
+        os.unlink(out_path)
+    for name, shapes in rec["launched_shapes"].items():
+        launched_shapes[name].update(tuple(s) for s in shapes)
+    return rec
+
+
 def device_idle_share(fn) -> dict:
     """Run `fn` inside one profiler window and return the window's length on
     the host clock, the time in which at least one kernel or copy ran on the
@@ -1091,6 +1251,8 @@ def main() -> int:
               file=sys.stderr)
         return 3
     sys.path.insert(0, HERE)
+    if sys.argv[1:2] == ["--nonative-child"]:
+        return nonative_child(sys.argv[2])
 
     from roibasedimagecompression_torch import native
     from roibasedimagecompression_torch.ops.cuda import _build
@@ -1283,7 +1445,39 @@ def main() -> int:
                      for name in launches_cli}
 
     print(f"[time] phase 11 ended at {time.perf_counter() - t_script:.1f} s")
-    # -- 12. cover ------------------------------------------------------------------
+    # -- 12. options and the codec without its runtime ---------------------------
+    t_opt = time.perf_counter()
+    op = run_options(device, images_one[0])
+    for label, rec in op.items():
+        cpu_s = rec["cpu_seconds"]
+        print(f"[options] {label}: {rec['seconds']:.3f} s on the card, {cpu_s:.3f} s on the CPU, "
+              f"equal to the CPU (every output); PSNR {rec['psnr_db']:.2f} dB, {rec['bpp']:.3f} bpp [{card}]")
+        print(f"[options] {label} launches: {rec['launches']}")
+        for name, hist in rec["shapes"].items():
+            print(f"[options] {label} launch shapes, {name}: {json.dumps(hist)}")
+        if "stages" in rec:
+            print(f"[options] {label} stages: {json.dumps({k: round(v, 4) for k, v in rec['stages'].items()})}")
+    print(f"[options] phase seconds: {time.perf_counter() - t_opt:.1f}")
+    t_nn = time.perf_counter()
+    nn = run_nonative()
+    for label, rec in nn["runs"].items():
+        print(f"[nonative] {label}: {rec['seconds']:.3f} s on the card, {rec['cpu_seconds']:.3f} s on the "
+              f"CPU, bytes equal under RHCCQ_NATIVE=0; {rec['cc_passes']} propagation passes; PSNR "
+              f"{[round(p, 2) for p in rec['psnr_db']]} dB, bpp {[round(b, 3) for b in rec['bpp']]} [{card}]")
+        print(f"[nonative] {label} launches: {rec['launches']}")
+        for name, hist in rec["shapes"].items():
+            print(f"[nonative] {label} launch shapes, {name}: {json.dumps(hist)}")
+        print(f"[nonative] {label} stages: {json.dumps(rec['stages'])} [{card}]")
+    for label, rec in nn["cc"].items():
+        print(f"[nonative] propagation, {label}: {rec['passes']} passes, {rec['ms']:.3f} ms, "
+              f"{rec['ms_per_pass']:.3f} ms a pass by CUDA events [{card}]")
+    print(f"[nonative] phase seconds: {time.perf_counter() - t_nn:.1f}")
+    launches_options = {name: sum(rec["launches"][name] for rec in op.values()) for name in launches_cli}
+    launches_nonative = {name: sum(rec["launches"][name] for rec in nn["runs"].values())
+                         for name in launches_cli}
+
+    print(f"[time] phase 12 ended at {time.perf_counter() - t_script:.1f} s")
+    # -- 13. cover ------------------------------------------------------------------
     # Whatever shape a path launched a kernel at, beyond those of phases 3 and
     # 4, is held against the plain version here.
     def slic_key(r):
@@ -1305,20 +1499,22 @@ def main() -> int:
           f"but launched by no path: slic_assign {[slic_key(r) for r in k1 if not r['on_path']]}, "
           f"packed eps loop {[r['shape'] for r in k2_packed if not r['on_path']]}")
 
-    print(f"[time] phase 12 ended at {time.perf_counter() - t_script:.1f} s")
-    # -- 13. kernels line ------------------------------------------------------------
+    print(f"[time] phase 13 ended at {time.perf_counter() - t_script:.1f} s")
+    # -- 14. kernels line ------------------------------------------------------------
     # `launches` count the main paths, each read around its own run from 0:
     # the one-image encodes of phase 5, the warm encode_many at CodecConfig()
     # of phase 7, the in-process CLI encodes of phase 9, the canvas runs of
     # phase 10 (kernel 1's direct form runs in its RHCCQ_SLIC_PALLAS=1
-    # encode) and the loop's two encodes of phase 11; the stream's are beside
-    # them.
+    # encode), the loop's two encodes of phase 11, and phase 12's option
+    # runs and runs without the runtime; the stream's are beside them.
     def launches_of(name):
         return {"launches": launches_one[name] + launches_batch[name] + launches_cli[name]
-                + launches_canvas[name] + launches_loop[name],
+                + launches_canvas[name] + launches_loop[name] + launches_options[name]
+                + launches_nonative[name],
                 "launches_one_image": launches_one[name], "launches_batch": launches_batch[name],
                 "launches_cli": launches_cli[name], "launches_canvas": launches_canvas[name],
-                "launches_loop": launches_loop[name], "launches_stream": sr["launches"][name]}
+                "launches_loop": launches_loop[name], "launches_options": launches_options[name],
+                "launches_nonative": launches_nonative[name], "launches_stream": sr["launches"][name]}
 
     # The headline numbers of each entry are those of the largest shape a path
     # launched it at (by pixels, B * MP, and by pairs, B * N * N): (8, 221184,
@@ -1351,7 +1547,8 @@ def main() -> int:
         # `ms` times) is launched by no encode.
         | launches_of("eps_components")
         | {"launches_alone": launches_one["eps_sweep_alone"] + launches_batch["eps_sweep_alone"]
-                            + launches_cli["eps_sweep_alone"] + launches_loop["eps_sweep_alone"],
+                            + launches_cli["eps_sweep_alone"] + launches_loop["eps_sweep_alone"]
+                            + launches_options["eps_sweep_alone"] + launches_nonative["eps_sweep_alone"],
            "max_abs_err": max(r["max_abs_err"] for r in k2),
            "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
            "bound_by": big["bound_by"], "library_ms": None,
@@ -1361,7 +1558,8 @@ def main() -> int:
          "replaces": "roibasedimagecompression_tpu/ops/pallas/epscc.py:97"}
         | launches_of("eps_components")
         | {"rounds": launches_one["eps_rounds"] + launches_batch["eps_rounds"] + launches_cli["eps_rounds"]
-                     + launches_loop["eps_rounds"],
+                     + launches_loop["eps_rounds"] + launches_options["eps_rounds"]
+                     + launches_nonative["eps_rounds"],
            "max_abs_err": max(r["loop_max_abs_err"] for r in k2 + k2_packed),
            # One whole call (pack, loop kernel, read-back) through the packed
            # entry at the largest shape a path launched; its bound is one

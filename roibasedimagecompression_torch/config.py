@@ -120,10 +120,9 @@ class CodecConfig:
     """Top-level codec configuration (quality preset + pipeline switches).
 
     Field meanings are those of the JAX package's CodecConfig.  This port runs
-    the batched path, with every split method and `fill_black_holes`, and the
-    reference-shaped loop (`batched=False`, which `encode_many` ignores, as
-    the JAX package does); `region_fusion` and `weighted_split` raise
-    NotImplementedError in `encode`.
+    every field: the batched path, with every split method, `fill_black_holes`,
+    `region_fusion` and `weighted_split`, and the reference-shaped loop
+    (`batched=False`, which `encode_many` ignores, as the JAX package does).
     """
 
     roi_quality: float = 20.0

@@ -90,7 +90,7 @@ def subregion_quantization(image_rgb: np.ndarray, regions: list, quality: float,
             seg_img = np.zeros_like(bbox_crop)
             seg_img[seg_crop_mask] = _black_repair(bbox_crop[seg_crop_mask])
 
-            comp = Q.from_pixels(seg_img, (minr + r0, minc + c0))
+            comp = Q.from_pixels(seg_img, (minr + r0, minc + c0), device)
             comps.append(Q.cluster_component(comp, quality, device, seed=config.seed))
 
         if not comps:
@@ -99,15 +99,13 @@ def subregion_quantization(image_rgb: np.ndarray, regions: list, quality: float,
     return out
 
 
-def _extract_and_assign(image_rgb, roi_mask, nonroi_mask, config, min_size):
-    """Region extraction + small-ROI demotion.  The alternative with region
-    fusion (config.region_fusion) is not ported."""
+def _extract_and_assign(image_rgb, roi_mask, nonroi_mask, config, min_size, device=None):
+    """Region extraction + small-ROI demotion, or with config.region_fusion
+    the two-way reassignment and fusion of touching regions."""
     if config.region_fusion:
-        raise NotImplementedError(
-            f"region_fusion is not ported yet: {_UNPORTED['region_fusion']}"
-        )
-    roi_regions = SEG.extract_regions(roi_mask, "roi")
-    nonroi_regions = SEG.extract_regions(nonroi_mask, "nonroi")
+        return SEG.process_regions_with_reassignment(image_rgb, roi_mask, nonroi_mask, device)
+    roi_regions = SEG.extract_regions(roi_mask, "roi", device)
+    nonroi_regions = SEG.extract_regions(nonroi_mask, "nonroi", device)
     return SEG.reassign_small_roi(roi_regions, nonroi_regions, min_size)
 
 
@@ -283,7 +281,7 @@ def tiers23_palette_indices(
     out2 = QB.cluster_pair_table(
         uniq2, w2, qual2, device, seed=config.seed,
         split_method=config.split_method, split_margin=config.split_margin,
-        weighted=config.weighted_palette,
+        weighted_split=config.weighted_split, weighted=config.weighted_palette,
     )
     with stage_timer("t23.compose"):
         c2_packed = (
@@ -297,7 +295,7 @@ def tiers23_palette_indices(
     out3 = QB.cluster_pair_table(
         uniq3, w3, [config.image_quality] * b, device, seed=config.seed,
         split_method=config.split_method, split_margin=config.split_margin,
-        weighted=config.weighted_palette,
+        weighted_split=config.weighted_split, weighted=config.weighted_palette,
     )
     with stage_timer("t23.compose"):
         c3_packed = (
@@ -386,9 +384,10 @@ def tiers23_palette_indices(
         for i in range(b):
             pal = results[i]
             idx_map = np.zeros((h, w), C.min_index_dtype(max(len(pal) - 1, 0)))
-            native.paint_masked_indices(
-                idx_of_pair, inverse[offs[i] : offs[i + 1]], mask[i * h : (i + 1) * h], idx_map
-            )
+            inv_i, mask_i = inverse[offs[i] : offs[i + 1]], mask[i * h : (i + 1) * h]
+            if not native.paint_masked_indices(idx_of_pair, inv_i, mask_i, idx_map):
+                idx_map.reshape(-1)[np.flatnonzero(mask_i.ravel())] = idx_of_pair[inv_i].astype(
+                    idx_map.dtype)
             if do_refit:
                 pal = RF.refit_pixels(refit_originals[i], pal, idx_map)
             out.append((pal, idx_map))
@@ -402,7 +401,8 @@ def tiers23_colors_many(t1_list: list, group_map_list: list, config: cfg.CodecCo
     group), then the optional black-hole fill, then tier 3 one problem per
     image.  Returns (t2_list, t3_list) of (h, w, 3) uint8 colour maps."""
     kw = dict(seed=config.seed, weighted=config.weighted_palette,
-              split_method=config.split_method, split_margin=config.split_margin)
+              split_method=config.split_method, split_margin=config.split_margin,
+              weighted_split=config.weighted_split)
     colors_in, sels, quals, owner = [], [], [], []
     for k, (t1, gm) in enumerate(zip(t1_list, group_map_list)):
         for g, q2 in ((1, config.roi_tier2_quality), (2, config.nonroi_tier2_quality)):
@@ -417,7 +417,7 @@ def tiers23_colors_many(t1_list: list, group_map_list: list, config: cfg.CodecCo
         QB.cluster_color_maps_many(colors_in, sels, quals, [t2_list[k] for k in owner], device, **kw)
 
     if config.fill_black_holes > 0:
-        t2_list = [HOLES.fill_black_holes(t2, config.fill_black_holes) for t2 in t2_list]
+        t2_list = [HOLES.fill_black_holes(t2, config.fill_black_holes, device) for t2 in t2_list]
 
     colors_in, sels, owner = [], [], []
     for k, (t2, gm) in enumerate(zip(t2_list, group_map_list)):
@@ -438,11 +438,12 @@ def tiers23_colors_many(t1_list: list, group_map_list: list, config: cfg.CodecCo
     return t2_list, t3_list
 
 
-def canvas_palette_indices(t3: np.ndarray, t1: np.ndarray, config: cfg.CodecConfig):
+def canvas_palette_indices(t3: np.ndarray, t1: np.ndarray, config: cfg.CodecConfig,
+                           device=None):
     """Final palette and index map of a tier-3 canvas (its unique colours),
     refined on the tier-1 canvas where the config refines."""
     h, w = t3.shape[:2]
-    palette, indices = U.unique_colors(t3.reshape(-1, 3))
+    palette, indices = U.unique_colors(t3.reshape(-1, 3), device)
     indices = indices.reshape(h, w)
     iters = RF.effective_iters(config)
     if iters > 0:
@@ -470,18 +471,6 @@ def _coerce_rgb(image: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(image)
 
 
-_UNPORTED = {
-    "region_fusion": "ROADMAP A12c (region fusion)",
-    "weighted_split": "ROADMAP A12c (weighted_split)",
-}
-
-
-def _check_ported(config: cfg.CodecConfig) -> None:
-    for field, item in _UNPORTED.items():
-        if getattr(config, field):
-            raise NotImplementedError(f"{field} is not ported yet: {item}")
-
-
 def _single_region(h: int, w: int) -> list:
     """The whole image as one ROI region."""
     return [SEG.Region(bbox=(0, 0, h, w), bbox_mask=np.ones((h, w), bool), area=h * w, kind="roi")]
@@ -505,10 +494,10 @@ def encode_batched(image_rgb: np.ndarray, config: cfg.CodecConfig, device) -> by
                 lows, highs = CANNY.fast_thresholds_many(image_rgb[None], device)
                 low, high = float(lows[0]), float(highs[0])
             else:
-                low, high = CANNY.select_thresholds_pair(image_rgb)
-            roi_mask, nonroi_mask = ROI.roi_masks_fast(image_rgb, config, low, high)
+                low, high = CANNY.select_thresholds_pair(image_rgb, device)
+            roi_mask, nonroi_mask = ROI.roi_masks_fast(image_rgb, config, low, high, device)
             roi_regions, nonroi_regions = _extract_and_assign(
-                image_rgb, roi_mask, nonroi_mask, config, min_size
+                image_rgb, roi_mask, nonroi_mask, config, min_size, device
             )
 
     with stage_timer("segment"):
@@ -520,7 +509,7 @@ def encode_batched(image_rgb: np.ndarray, config: cfg.CodecConfig, device) -> by
         table = QB.tier1_table(
             image_rgb, seg_map, seg_quality, device, seed=config.seed,
             weighted=config.weighted_palette, split_method=config.split_method,
-            split_margin=config.split_margin,
+            split_margin=config.split_margin, weighted_split=config.weighted_split,
         )
 
     with stage_timer("tier23"):
@@ -531,7 +520,7 @@ def encode_batched(image_rgb: np.ndarray, config: cfg.CodecConfig, device) -> by
             if table is not None:
                 QB.paint_table(table, t1)
             _, (t3,) = tiers23_colors_many([t1], [seg_group[seg_map]], config, device)
-            palette, indices = canvas_palette_indices(t3, t1, config)
+            palette, indices = canvas_palette_indices(t3, t1, config, device)
         else:
             image_of_seg = np.zeros(len(seg_quality), np.int32)
             ((palette, indices),) = tiers23_palette_indices(
@@ -543,6 +532,55 @@ def encode_batched(image_rgb: np.ndarray, config: cfg.CodecConfig, device) -> by
         return C.pack(palette, indices, level=config.container_level)
 
 
+def encode_debug(image_rgb: np.ndarray, config: cfg.CodecConfig | None = None,
+                 device=None) -> dict:
+    """Encode while exposing every intermediate: a dict of 'roi_mask',
+    'nonroi_mask', 'seg_map', 'tier1', 'tier2', 'tier3' (RGB canvases) and
+    'data' (the .rhccq bytes).  The masks come from `roi_fused.roi_masks`,
+    whose graph with `fast_edges` off is the device one, runtime or not; the
+    tiers are the canvas path's.  device=None runs on CUDA; pass "cpu" for
+    the CPU."""
+    from roibasedimagecompression_torch.models import roi_fused as ROI
+
+    config = config or cfg.CodecConfig()
+    device = DEV.resolve(device)
+    image_rgb = np.ascontiguousarray(np.asarray(image_rgb, dtype=np.uint8))
+    h, w = image_rgb.shape[:2]
+    min_size = cfg.min_region_size(image_rgb.size)
+
+    if config.single_region:
+        roi_mask = np.ones((h, w), bool)
+        nonroi_mask = np.zeros((h, w), bool)
+        roi_regions, nonroi_regions = _single_region(h, w), []
+    else:
+        roi_mask, nonroi_mask = ROI.roi_masks(image_rgb, config, device)
+        roi_regions, nonroi_regions = _extract_and_assign(
+            image_rgb, roi_mask, nonroi_mask, config, min_size, device
+        )
+
+    seg_map, seg_quality, seg_group = build_segment_map(
+        image_rgb, roi_regions, nonroi_regions, config, device
+    )
+    t1 = QB.tier1_colors(
+        image_rgb, seg_map, seg_quality, device, seed=config.seed,
+        weighted=config.weighted_palette, split_method=config.split_method,
+        split_margin=config.split_margin, weighted_split=config.weighted_split,
+    )
+    group_map = np.where(seg_map > 0, seg_group[seg_map], 0)
+    (t2,), (t3,) = tiers23_colors_many([t1], [group_map], config, device)
+    palette, indices = canvas_palette_indices(t3, t1, config, device)
+    palette = RF.maybe_refit(image_rgb, palette, indices, config)
+    return {
+        "roi_mask": roi_mask,
+        "nonroi_mask": nonroi_mask,
+        "seg_map": seg_map,
+        "tier1": t1,
+        "tier2": t2,
+        "tier3": t3,
+        "data": C.pack(palette, indices, level=config.container_level),
+    }
+
+
 def encode(image_rgb: np.ndarray, config: cfg.CodecConfig | None = None,
            device=None) -> bytes:
     """Encode an (h, w, 3) uint8 RGB image to .rhccq bytes.
@@ -551,7 +589,6 @@ def encode(image_rgb: np.ndarray, config: cfg.CodecConfig | None = None,
     CPU.
     """
     config = config or cfg.CodecConfig()
-    _check_ported(config)
     device = DEV.resolve(device)
     if config.batched:
         return encode_batched(image_rgb, config, device)
@@ -574,7 +611,7 @@ def encode_loop(image_rgb: np.ndarray, config: cfg.CodecConfig, device) -> bytes
 
             roi_mask, nonroi_mask = ROI.roi_masks(image_rgb, config, device)
             roi_regions, nonroi_regions = _extract_and_assign(
-                image_rgb, roi_mask, nonroi_mask, config, min_size
+                image_rgb, roi_mask, nonroi_mask, config, min_size, device
             )
 
     with stage_timer("tier1"):

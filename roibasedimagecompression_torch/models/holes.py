@@ -22,20 +22,21 @@ def _pack(colors_rgb: np.ndarray) -> np.ndarray:
     )
 
 
-def fill_black_holes(colors_rgb: np.ndarray, max_hole_size: int = 10) -> np.ndarray:
+def fill_black_holes(colors_rgb: np.ndarray, max_hole_size: int = 10, device=None) -> np.ndarray:
     """Fill black 8-connected regions of size <= max_hole_size.
 
     Each hole is filled with the most common non-black color among its
     dilated neighbor ring (each neighbor PIXEL counted once, matching the
     reference's `dilated & ~region` mask); holes whose ring is all black stay
-    black.  Returns a new (h, w, 3) uint8 array.
+    black.  Returns a new (h, w, 3) uint8 array.  `device` runs the
+    components without the native runtime (the CPU when None).
     """
     packed = _pack(colors_rgb)
     black = packed == 0
     if not black.any():
         return colors_rgb
     h, w = black.shape
-    labels, num = CC.connected_components(black, connectivity=8)
+    labels, num = CC.connected_components(black, connectivity=8, device=device)
     if num <= 1:
         return colors_rgb
     sizes = np.bincount(labels.ravel(), minlength=num)

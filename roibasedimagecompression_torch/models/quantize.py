@@ -50,9 +50,10 @@ class Component:
         return self.palette[self.indices]
 
 
-def from_pixels(patch: np.ndarray, top_left: tuple) -> Component:
-    """A Component with the exact palette of an (h, w, 3) uint8 patch."""
-    palette, idx = U.unique_colors(patch.reshape(-1, 3))
+def from_pixels(patch: np.ndarray, top_left: tuple, device=None) -> Component:
+    """A Component with the exact palette of an (h, w, 3) uint8 patch
+    (`device` sorts it without the native runtime)."""
+    palette, idx = U.unique_colors(patch.reshape(-1, 3), device)
     return Component(
         top_left=tuple(int(v) for v in top_left),
         palette=palette,

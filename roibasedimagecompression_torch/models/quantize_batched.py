@@ -8,10 +8,12 @@ clusters split level-synchronously: small ones by host PCA median cuts, large
 ones by batched device k-means.
 
 The pair tables, keys and bookkeeping are host numpy and the native runtime,
-as in the JAX package; the eps-CC sweeps run through the CUDA kernel on the
-card and through the native union-find on the CPU (both give the same
-run-local minimum-member labels, so the keys are identical), and k-means runs
-as torch ops on the caller's device.
+as in the JAX package (without the runtime, RHCCQ_NATIVE=0, the JAX
+package's numpy branches, which give the same tables); the eps-CC sweeps run
+through the CUDA kernel on the card, and on the CPU through the native
+union-find, or the plain sweep without the runtime or under
+RHCCQ_EPSCC=device (all give the same run-local minimum-member labels, so the
+keys are identical), and k-means runs as torch ops on the caller's device.
 """
 
 from __future__ import annotations
@@ -32,16 +34,34 @@ _SPLIT_CAPS = (64, 256, 1024, 4096, 16384, 65536)
 _HYBRID_CUTOFF = 64  # RHCCQ_HYBRID_CUTOFF overrides it
 
 
-def _check_weighted_split() -> None:
-    """RHCCQ_WEIGHTED_SPLIT, parsed as the JAX package parses it (unset: the
-    config's flag, which the codec has already refused; "" or "0": off;
-    anything else: on).  The weighted split is not ported, so "on" raises."""
+def _weighted_split_on(flag: bool) -> bool:
+    """RHCCQ_WEIGHTED_SPLIT overrides the config flag, parsed as the JAX
+    package parses it (unset: the flag; "" or "0": off; anything else: on)."""
     env = os.environ.get("RHCCQ_WEIGHTED_SPLIT")
-    if env is not None and env not in ("", "0"):
-        raise NotImplementedError(
-            f"RHCCQ_WEIGHTED_SPLIT={env!r} turns on the weighted split, which is not "
-            "ported yet: ROADMAP A12c (weighted_split)"
-        )
+    if env is None:
+        return flag
+    return env not in ("", "0")
+
+
+_WEIGHT_DROP_WARNED: set = set()
+
+
+def _warn_weights_dropped(reason: str) -> None:
+    """One warning per reason and process where the weighted split runs
+    unweighted: the median cuts, the PCA-chunk init and the >65536-colour
+    host k-means have no weighted form."""
+    if reason in _WEIGHT_DROP_WARNED:
+        return
+    _WEIGHT_DROP_WARNED.add(reason)
+    import warnings
+
+    warnings.warn(
+        f"weighted_split: {reason} has no weighted kernel; those splits run "
+        "unweighted (pixel-mass weighting applies to the device Lloyd path "
+        "only)",
+        RuntimeWarning,
+        stacklevel=3,
+    )
 
 
 def _unique_inverse(keys: np.ndarray, return_counts: bool = False):
@@ -52,6 +72,60 @@ def _runs_of_sorted(sorted_arr: np.ndarray):
     """(values, starts, counts) of equal runs in an already-sorted array."""
     _, starts, sizes = native.runs_of_sorted_i64(sorted_arr)
     return sorted_arr[starts], starts, sizes
+
+
+def _pairs_numpy(image_rgb: np.ndarray, seg_map: np.ndarray):
+    """(seg_of_pair, color_of_pair, inverse) of the (segment, colour) pairs
+    of the seg > 0 pixels, by np.unique (the table `native.pack_pairs`
+    builds)."""
+    packed = (
+        (image_rgb[..., 0].astype(np.int64) << 16)
+        | (image_rgb[..., 1].astype(np.int64) << 8)
+        | image_rgb[..., 2].astype(np.int64)
+    )
+    key = seg_map.astype(np.int64) << 24 | packed
+    uniq, inverse = _unique_inverse(key[seg_map > 0])
+    return (uniq >> 24).astype(np.int32), (uniq & 0xFFFFFF).astype(np.int32), inverse.astype(np.int64)
+
+
+def _black_repair_numpy(seg_of_pair, color_of_pair, inverse):
+    """Per-segment black repair of the pair table in numpy (what
+    `native.black_repair_pairs` does): black pairs of a segment with
+    non-black colours remap to its darkest non-black pair (least squared
+    norm, then least row).  Returns (seg_of_pair, color_of_pair, inverse)
+    with those black pairs dropped."""
+    rgb = _unpack(color_of_pair).astype(np.int64)
+    norm2 = (rgb**2).sum(axis=1)
+    is_black = color_of_pair == 0
+    n_seg = int(seg_of_pair.max()) + 1 if len(seg_of_pair) else 1
+    sentinel = np.iinfo(np.int64).max
+    order_key = np.where(is_black, sentinel, norm2 << 44 | np.arange(len(seg_of_pair)))
+    darkest = np.full(n_seg, sentinel, np.int64)
+    np.minimum.at(darkest, seg_of_pair, order_key)
+    has_nonblack = darkest < sentinel
+    darkest_idx = np.where(has_nonblack, darkest & ((1 << 44) - 1), -1)
+    target = np.arange(len(seg_of_pair), dtype=np.int64)
+    repairable = is_black & has_nonblack[seg_of_pair]
+    target[repairable] = darkest_idx[seg_of_pair[repairable]]
+    keep = ~repairable
+    remap = (np.cumsum(keep) - 1)[target]
+    return seg_of_pair[keep], color_of_pair[keep], remap[inverse]
+
+
+def _cluster_means_u8(cluster_of_pair, color_of_pair, weights, n_clusters: int) -> np.ndarray:
+    """Weighted per-cluster mean colours truncated to uint8: the runtime's
+    pass, or numpy's bincount chain, which it equals bit for bit."""
+    out = native.cluster_means_u8(cluster_of_pair, color_of_pair, weights, n_clusters)
+    if out is not None:
+        return out
+    colors = _unpack(color_of_pair).astype(np.float32)
+    wv = weights if weights is not None else np.ones(len(cluster_of_pair), np.float64)
+    counts = np.bincount(cluster_of_pair, weights=wv, minlength=n_clusters)
+    means = np.zeros((n_clusters, 3), np.float64)
+    for c in range(3):
+        means[:, c] = np.bincount(cluster_of_pair, weights=colors[:, c] * wv, minlength=n_clusters)
+    means /= np.maximum(counts, 1.0)[:, None]
+    return means.astype(np.uint8)
 
 
 def _unpack(colors_packed: np.ndarray) -> np.ndarray:
@@ -116,6 +190,18 @@ def _assign_trivial_runs(cluster_keys, colors, starts, sizes_inout, eps,
     return np.int64(len(triv))
 
 
+def _epscc_native_on() -> bool:
+    """The eps-CC backend on the CPU, picked as the JAX package picks it:
+    RHCCQ_EPSCC=device forces the sweeps, =native the runtime's union-find,
+    otherwise the runtime when it is in use.  The labels are the same."""
+    env = os.environ.get("RHCCQ_EPSCC")
+    if env == "device":
+        return False
+    if env == "native":
+        return True
+    return native.available()
+
+
 def _epscc_labels_device(color_of_pair, starts, sizes, eps, cap, device) -> np.ndarray:
     """Run-major int32 labels of the runs through the eps-components kernel.
 
@@ -139,20 +225,23 @@ def _epscc_assign_keys(cluster_keys, color_of_pair, starts, sizes_masked,
     """Assign eps-CC cluster keys for every non-zero run, in place.
 
     On CUDA every bucket goes through the eps-sweep kernel; on the CPU
-    through the native grid union-find.  Both give run-local minimum-member
-    labels, and the key arithmetic (key_base + row * (cap+1) + label over the
-    same bucket grid) is shared, so the keys are identical.  Returns the
-    advanced key_base.
+    through the native grid union-find (`_epscc_native_on`) or the plain
+    sweep.  All give run-local minimum-member labels, and the key arithmetic
+    (key_base + row * (cap+1) + label over the same bucket grid) is shared,
+    so the keys are identical.  Returns the advanced key_base.
     """
+    cuda = torch.device(device).type == "cuda"
+    use_native = not cuda and _epscc_native_on()
     for cap, ids in _bucketize(sizes_masked, _BUCKETS).items():
         with stage_timer("epscc.labels"):
-            if torch.device(device).type == "cuda":
-                labels = _epscc_labels_device(
-                    color_of_pair, starts[ids], sizes_masked[ids], eps[ids], cap, device
-                )
-            else:
+            labels = None
+            if use_native:
                 labels = native.epscc_labels_runs(
                     color_of_pair, starts[ids], sizes_masked[ids], eps[ids]
+                )
+            if labels is None:
+                labels = _epscc_labels_device(
+                    color_of_pair, starts[ids], sizes_masked[ids], eps[ids], cap, device
                 )
         flat_pos, flat_row, _ = native.flat_run_positions(starts[ids], sizes_masked[ids])
         cluster_keys[flat_pos] = key_base + flat_row * np.int64(cap + 1) + labels
@@ -170,6 +259,7 @@ def tier1_table(
     weighted: bool = True,
     split_method: str = "kmeans",
     split_margin: float = 1.0,
+    weighted_split: bool = False,
     device_pairs=None,
 ) -> dict | None:
     """Tier-1 clustering as a pair/cluster TABLE (no canvas paint).
@@ -196,20 +286,32 @@ def tier1_table(
         mask = seg_map > 0
         # Black repair in C++: black pairs take their segment's darkest
         # non-black color; the pair table compacts in place.
+        # Without the runtime: numpy's unique and repair (the same table).
         repair_remap = None
+        packed = None if device_pairs is not None else native.pack_pairs(image_rgb, seg_map)
         if device_pairs is not None:
             uniq, counts = device_pairs.uniq.copy(), device_pairs.counts.copy()
             inverse = None
             if len(uniq) == 0:
                 return None
             m, repair_remap = native.black_repair_pairs(uniq, counts, None, return_remap=True)
-        else:
-            uniq, inverse, counts = native.pack_pairs(image_rgb, seg_map)
+        elif packed is not None:
+            uniq, inverse, counts = packed
             if len(uniq) == 0:
                 return None
             m = native.black_repair_pairs(uniq, counts, inverse)
-        counts = counts[:m]
-        seg_of_pair, color_of_pair, colors = native.split_pair_uniq(uniq[:m])
+        if device_pairs is not None or packed is not None:
+            counts = counts[:m]
+            seg_of_pair, color_of_pair, colors = native.split_pair_uniq(uniq[:m])
+        else:
+            seg_of_pair, color_of_pair, inverse = _pairs_numpy(image_rgb, seg_map)
+            if len(seg_of_pair) == 0:
+                return None
+            seg_of_pair, color_of_pair, inverse = _black_repair_numpy(
+                seg_of_pair, color_of_pair, inverse
+            )
+            counts = np.bincount(inverse, minlength=len(seg_of_pair))
+            colors = _unpack(color_of_pair).astype(np.float32)
     n_pairs = len(seg_of_pair)
 
     # Pair table is sorted by (segment, color): contiguous runs per segment.
@@ -258,18 +360,17 @@ def tier1_table(
         next_cluster = int(cluster_of_pair.max()) + 1
 
     pair_weights = counts.astype(np.float64)
-
-    _check_weighted_split()
     with stage_timer("t1.split"):
         pair_max_colors = np.repeat(max_colors, sizes)
         cluster_of_pair, next_cluster = _split_oversized_batched(
             colors, cluster_of_pair, pair_max_colors, next_cluster, seed, device,
             method=split_method, margin=split_margin,
+            weights=pair_weights if _weighted_split_on(weighted_split) else None,
             colors_dev_pre=None if device_pairs is None else device_pairs.colors_dev,
         )
 
     with stage_timer("t1.means"):
-        cluster_colors = native.cluster_means_u8(
+        cluster_colors = _cluster_means_u8(
             cluster_of_pair, color_of_pair, pair_weights if weighted else None,
             next_cluster,
         )
@@ -295,12 +396,14 @@ def tier1_colors(
     weighted: bool = True,
     split_method: str = "kmeans",
     split_margin: float = 1.0,
+    weighted_split: bool = False,
 ) -> np.ndarray:
     """Per-pixel tier-1 colours: (h, w, 3) uint8, black where seg_map == 0
     (the tier-1 table painted onto a canvas)."""
     table = tier1_table(
         image_rgb, seg_map, seg_quality, device, seed=seed, weighted=weighted,
         split_method=split_method, split_margin=split_margin,
+        weighted_split=weighted_split,
     )
     out = np.zeros_like(np.asarray(image_rgb, np.uint8))
     if table is not None:
@@ -311,9 +414,10 @@ def tier1_colors(
 def paint_table(table: dict, out: np.ndarray) -> None:
     """Paint a host tier-1 table's cluster colours onto the (h, w, 3) uint8
     canvas `out` at its masked pixels."""
-    native.paint_masked_colors(
+    if not native.paint_masked_colors(
         table["cluster_colors"], table["cluster_of_pair"], table["inverse"], table["mask"], out
-    )
+    ):
+        out[table["mask"]] = table["cluster_colors"][table["cluster_of_pair"][table["inverse"]]]
 
 
 def cluster_color_maps_many(
@@ -327,6 +431,7 @@ def cluster_color_maps_many(
     weighted: bool = True,
     split_method: str = "kmeans",
     split_margin: float = 1.0,
+    weighted_split: bool = False,
 ) -> list:
     """Tier-2/3 colour-map clustering of many problems in one pooled table.
 
@@ -345,6 +450,10 @@ def cluster_color_maps_many(
         off = 0
         for i in range(n_prob):
             n = native.pack_sel_keys(colors_list[i], sel_list[i], i, keys, off)
+            if n is None:
+                c = colors_list[i][sel_list[i]].astype(np.int64)
+                n = len(c)
+                keys[off : off + n] = np.int64(i) << 24 | (c[:, 0] << 16) | (c[:, 1] << 8) | c[:, 2]
             pixel_counts.append(n)
             off += n
         if off == 0:
@@ -353,11 +462,14 @@ def cluster_color_maps_many(
 
     pair_colors = cluster_pair_table(
         uniq, pair_pixel_counts, quality_list, device, seed=seed,
-        split_method=split_method, split_margin=split_margin, weighted=weighted,
+        split_method=split_method, split_margin=split_margin,
+        weighted_split=weighted_split, weighted=weighted,
     )
     off = 0
     for i, cnt in enumerate(pixel_counts):
-        native.paint_masked_colors(pair_colors, None, inverse[off : off + cnt], sel_list[i], out_list[i])
+        inv = inverse[off : off + cnt]
+        if not native.paint_masked_colors(pair_colors, None, inv, sel_list[i], out_list[i]):
+            out_list[i][sel_list[i]] = pair_colors[inv]
         off += cnt
     return out_list
 
@@ -371,6 +483,7 @@ def cluster_pair_table(
     seed: int = 42,
     split_method: str = "kmeans",
     split_margin: float = 1.0,
+    weighted_split: bool = False,
     weighted: bool = True,
 ) -> np.ndarray:
     """Cluster a pooled, deduped (problem, color) pair table.
@@ -439,18 +552,17 @@ def cluster_pair_table(
         _, cluster_of_pair = _unique_inverse(cluster_keys)
         next_cluster = int(cluster_of_pair.max()) + 1
 
-    _check_weighted_split()
     with stage_timer("t23.split"):
         pair_limits = np.repeat(max_colors, sizes)
+        split_w = weights if _weighted_split_on(weighted_split) else None
         cluster_of_pair, next_cluster = _split_oversized_batched(
             colors, cluster_of_pair, pair_limits, next_cluster, seed, device,
             method=split_method, margin=split_margin,
+            weights=None if split_w is None else split_w.astype(np.float64),
         )
 
     w = weights.astype(np.float64) if (weighted and weights is not None) else None
-    cluster_colors = native.cluster_means_u8(
-        cluster_of_pair, color_of_pair, w, next_cluster
-    )
+    cluster_colors = _cluster_means_u8(cluster_of_pair, color_of_pair, w, next_cluster)
     pair_colors = cluster_colors[cluster_of_pair]
     pair_colors[black_rows] = 0
     return pair_colors
@@ -552,28 +664,32 @@ def _split_oversized_mediancut(colors, cluster_of_pair, pair_max_colors, next_cl
 
 
 def _kmeans_bucket(colors_dev, order_dev, starts_b, sizes_b, ks_b, cap, k_max, seed,
-                   inits=None):
+                   inits=None, weights_dev=None):
     """Device k-means over runs of the ORDER permutation: row r's points are
     colors[order[starts_b[r] + j]], j < sizes_b[r], gathered on the device from
     the level's colors and order tensors.  inits: (B, k_max, 3) initial
-    centres (kmeans-mc), else k-means++ or the seeded random init.  Returns
-    (B, cap) labels."""
+    centres (kmeans-mc), else k-means++ or the seeded random init;
+    weights_dev: float32 per-pair weights gathered alike (weighted Lloyd).
+    Returns (B, cap) labels."""
     dev = colors_dev.device
     ss = torch.from_numpy(np.stack([starts_b, sizes_b]).astype(np.int64)).to(dev)
     within = torch.arange(cap, device=dev)[None, :]
     valid = within < ss[1][:, None]
     pos = torch.where(valid, ss[0][:, None] + within, torch.zeros_like(within))
-    pts = colors_dev[order_dev[pos]].float() * valid[..., None]
+    idx = order_dev[pos]
+    pts = colors_dev[idx].float() * valid[..., None]
+    w = None if weights_dev is None else weights_dev[idx] * valid
     labels = CL.kmeans_rows(
         pts, valid, ks_b, k_max=k_max, iters=10, seed=seed, plusplus=k_max <= 256,
         init_centers=None if inits is None else torch.from_numpy(inits).to(dev),
+        weights=w,
     )
     return labels.cpu().numpy()
 
 
 def _split_oversized_batched(colors, cluster_of_pair, pair_max_colors,
                              next_cluster, seed, device, method="kmeans",
-                             margin=1.0, colors_dev_pre=None):
+                             margin=1.0, weights=None, colors_dev_pre=None):
     """Split clusters above their per-segment max size, level-synchronously.
 
     Each level gathers ALL oversized clusters, buckets them by size and runs
@@ -592,6 +708,10 @@ def _split_oversized_batched(colors, cluster_of_pair, pair_max_colors,
     table's post-repair colors, any integer or float dtype, at least
     len(colors) rows).
 
+    `weights` (per-pair pixel counts, the weighted split) weight the device
+    Lloyd k-means; the paths without a weighted form warn once and run
+    unweighted, as in the JAX package.
+
     The JAX package's overrides from the environment are read here, where it
     reads them: RHCCQ_SPLIT_METHOD replaces `method`; RHCCQ_HYBRID_CUTOFF the
     hybrid cutoff (64); the hybrid cuts' margin is RHCCQ_HYBRID_MARGIN, else
@@ -600,6 +720,8 @@ def _split_oversized_batched(colors, cluster_of_pair, pair_max_colors,
     """
     method = os.environ.get("RHCCQ_SPLIT_METHOD") or method
     if method == "mediancut":
+        if weights is not None:
+            _warn_weights_dropped("split_method='mediancut'")
         with stage_timer("split.lum"):
             return _split_oversized_mediancut(colors, cluster_of_pair, pair_max_colors, next_cluster)
     if method not in ("kmeans", "hybrid", "kmeans-mc"):
@@ -607,6 +729,7 @@ def _split_oversized_batched(colors, cluster_of_pair, pair_max_colors,
     active = None
     any_split = False
     colors_dev = colors_dev_pre
+    weights_dev = None
     for _level in range(8):
         if active is None:
             order = native.argsort_i64(cluster_of_pair)
@@ -632,6 +755,8 @@ def _split_oversized_batched(colors, cluster_of_pair, pair_max_colors,
             )
             tiny = oversized[sizes[oversized] <= cutoff]
             if len(tiny):
+                if weights is not None:
+                    _warn_weights_dropped("hybrid's tiny median cuts")
                 flat_pos_t, _, _ = native.flat_run_positions(starts[tiny], sizes[tiny])
                 tiny_pos = order[flat_pos_t]
                 # Sizes halve per cut: log2(cutoff) + 2 rounds reach the limit.
@@ -666,6 +791,8 @@ def _split_oversized_batched(colors, cluster_of_pair, pair_max_colors,
 
         inits = None
         if method == "kmeans-mc":
+            if weights is not None:
+                _warn_weights_dropped("split_method='kmeans-mc'")
             pos_mc, row_mc, rank_mc, n_mc = _pca_chunk_ranks(colors, order, starts, sizes, oversized)
             inits = _pca_chunk_init_means(
                 colors, pos_mc, row_mc, rank_mc, n_mc, ks.astype(np.int64), _pad_kmax(int(ks.max()))
@@ -673,6 +800,8 @@ def _split_oversized_batched(colors, cluster_of_pair, pair_max_colors,
 
         huge_rows = np.flatnonzero(sizes[oversized] > _SPLIT_CAPS[-1])
         if len(huge_rows):
+            if weights is not None:
+                _warn_weights_dropped(">65536-color host k-means")
             labs = CL.kmeans_host_many(
                 [
                     (
@@ -693,12 +822,16 @@ def _split_oversized_batched(colors, cluster_of_pair, pair_max_colors,
             if colors_dev is None:
                 colors_dev = torch.from_numpy(colors).to(device)
             order_dev = torch.from_numpy(order).to(device)
+            if weights is not None and weights_dev is None:
+                # float32, as the JAX package uploads them.
+                weights_dev = torch.from_numpy(weights.astype(np.float32)).to(device)
             for cap, rows in _bucketize(sizes[oversized], _SPLIT_CAPS).items():
                 ids = oversized[rows]
                 k_max = _pad_kmax(int(ks[rows].max()))
                 labels = _kmeans_bucket(
                     colors_dev, order_dev, starts[ids], sizes[ids], ks[rows], cap,
                     k_max, seed, None if inits is None else inits[rows][:, :k_max],
+                    weights_dev if inits is None else None,
                 )
                 flat_pos, flat_row, within = native.flat_run_positions(
                     starts[ids], sizes[ids]

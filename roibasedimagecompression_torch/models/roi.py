@@ -8,7 +8,8 @@ The counterpart of the JAX package's `models/roi.py`, stage by stage:
   hole filling -> small-region cleanup -> ROI/non-ROI split with buffer zone
 
 Connected components and their statistics are host work on the native
-runtime (`ops/cc.py`); the filters (box densities, morphology, the distance
+runtime (`ops/cc.py`; without it, propagation on the caller's device and
+numpy statistics); the filters (box densities, morphology, the distance
 transform, the border Sobel) are torch ops on the caller's device, with the
 JAX package's CPU bits wherever a threshold reads them.  Stage constants
 live in config.RoiConfig.
@@ -47,7 +48,7 @@ def remove_thin_structures(binary: np.ndarray, density_threshold: float,
         return binary
     x = _dev(binary, device)
     density = _host(CONV.box_density(x, window_size))
-    labels, num = CC.connected_components(binary, connectivity=8)
+    labels, num = CC.connected_components(binary, connectivity=8, device=device)
     if num <= 1:
         return binary
     dist = _host(DIST.distance_transform_l2(x))
@@ -70,7 +71,7 @@ def remove_small_noise_regions(binary: np.ndarray, min_size: int, density_thresh
     density = _host(CONV.box_density(_dev(binary, device), window_size))
 
     def one_pass(mask):
-        labels, num = CC.connected_components(mask, connectivity=8)
+        labels, num = CC.connected_components(mask, connectivity=8, device=device)
         if num <= 1:
             return mask
         areas = CC.component_stats(labels, num).areas
@@ -124,9 +125,9 @@ def protect_border_regions(binary: np.ndarray, border: np.ndarray, kernel_size: 
 
 
 def fill_closed_regions(binary: np.ndarray, min_hole: int, max_hole: int,
-                        connectivity: int) -> np.ndarray:
+                        connectivity: int, device=None) -> np.ndarray:
     """Fill holes of min_hole <= area <= max_hole pixels."""
-    labels, num = CC.connected_components(~binary, connectivity=connectivity)
+    labels, num = CC.connected_components(~binary, connectivity=connectivity, device=device)
     if num <= 1:
         return binary
     areas = CC.component_stats(labels, num).areas
@@ -140,7 +141,7 @@ def fill_closed_regions(binary: np.ndarray, min_hole: int, max_hole: int,
 def remove_small_regions(binary: np.ndarray, min_size: int, device) -> np.ndarray:
     """3 x 3 closing, then drop components below min_size."""
     closed = _host(M.close(_dev(binary, device), np.ones((3, 3), bool)))
-    labels, num = CC.connected_components(closed, connectivity=8)
+    labels, num = CC.connected_components(closed, connectivity=8, device=device)
     if num <= 1:
         return closed
     areas = CC.component_stats(labels, num).areas
@@ -153,7 +154,7 @@ def roi_masks(image_rgb: np.ndarray, config: cfg.CodecConfig, device):
     """RGB image -> (roi_mask, nonroi_mask) bool maps: the edge map, the
     cleaning chain, the directional unification and the buffer zone."""
     rc = config.roi
-    edges, _ = CANNY.get_edge_map(image_rgb)
+    edges, _ = CANNY.get_edge_map(image_rgb, device)
     e = _dev(edges, device)
     density_t = CONV.box_density(e, rc.density_kernel)
     thr = float(H.masked_mean(density_t, e)) / 100.0
@@ -183,7 +184,8 @@ def roi_masks(image_rgb: np.ndarray, config: cfg.CodecConfig, device):
         binary, rc.bridge2_max_gap, rc.bridge1_density,
         rc.bridge_local_window, rc.bridge_regional_window, device,
     )
-    binary = fill_closed_regions(binary, rc.fill_min_hole, rc.fill_max_hole, connectivity=4)
+    binary = fill_closed_regions(binary, rc.fill_min_hole, rc.fill_max_hole, connectivity=4,
+                                 device=device)
     region_map = remove_small_regions(binary, rc.clean_min_size, device)
 
     # ROI / non-ROI with a dilated buffer zone shared by both.

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from roibasedimagecompression_torch import config as cfg
-from roibasedimagecompression_torch import native
+from roibasedimagecompression_torch.ops import cc as CC
 from roibasedimagecompression_torch.ops import colors as COL
 from roibasedimagecompression_torch.ops import conv as CONV
 from roibasedimagecompression_torch.ops import lbp as LBP
@@ -36,16 +36,14 @@ class Region:
     kind: str  # "roi" | "nonroi"
 
 
-def extract_regions(mask: np.ndarray, kind: str) -> list:
-    """Connected components (8-conn) of a binary mask -> Region list."""
-    mask = np.asarray(mask) != 0
-    if not mask.any():
-        return []
-    labels, n, _ = native.cc_label(mask, 8)
-    num = n + 1
+def extract_regions(mask: np.ndarray, kind: str, device=None) -> list:
+    """Connected components (8-conn) of a binary mask -> Region list
+    (`device` runs them without the native runtime; the CPU when None)."""
+    labels, num = CC.connected_components(mask, connectivity=8, device=device)
     if num <= 1:
         return []
-    areas, bboxes = native.component_stats(labels, num)
+    stats = CC.component_stats(labels, num)
+    areas, bboxes = stats.areas, stats.bboxes
     out = []
     for lab in range(1, num):
         minr, minc, maxr, maxc = bboxes[lab]
@@ -67,6 +65,44 @@ def reassign_small_roi(roi_regions: list, nonroi_regions: list, min_size: int):
         dataclasses.replace(r, kind="nonroi") for r in roi_regions if r.area < min_size
     ]
     return big, nonroi_regions + small
+
+
+def fuse_adjacent_regions(regions: list, image_shape: tuple, kind: str, device=None) -> list:
+    """Merge same-kind regions that touch (8-connectivity): rasterize every
+    region onto one canvas and extract its components again.  Returns the
+    input list unchanged when nothing fuses."""
+    if len(regions) <= 1:
+        return regions
+    combined = np.zeros(image_shape[:2], bool)
+    for r in regions:
+        minr, minc, maxr, maxc = r.bbox
+        combined[minr:maxr, minc:maxc] |= r.bbox_mask
+    fused = extract_regions(combined, kind, device)
+    if len(fused) == len(regions):
+        return regions
+    return fused
+
+
+def process_regions_with_reassignment(image_rgb: np.ndarray, roi_mask: np.ndarray,
+                                      nonroi_mask: np.ndarray, device=None):
+    """Region fusion (CodecConfig.region_fusion): extract, reassign small
+    regions both ways (small ROI regions become non-ROI and small non-ROI
+    regions ROI), then fuse each kind's touching regions.  The minimum size
+    counts pixels here, min_region_size(h * w), where the main path counts
+    h * w * 3 elements."""
+    h, w = image_rgb.shape[:2]
+    min_size = cfg.min_region_size(h * w)
+    roi_regions = extract_regions(roi_mask, "roi", device)
+    nonroi_regions = extract_regions(nonroi_mask, "nonroi", device)
+
+    new_roi = [r for r in roi_regions if r.area >= min_size]
+    new_nonroi = [dataclasses.replace(r, kind="nonroi") for r in roi_regions if r.area < min_size]
+    new_nonroi += [r for r in nonroi_regions if r.area >= min_size]
+    new_roi += [dataclasses.replace(r, kind="roi") for r in nonroi_regions if r.area < min_size]
+
+    new_roi = fuse_adjacent_regions(new_roi, image_rgb.shape, "roi", device)
+    new_nonroi = fuse_adjacent_regions(new_nonroi, image_rgb.shape, "nonroi", device)
+    return new_roi, new_nonroi
 
 
 class DeviceBatch:

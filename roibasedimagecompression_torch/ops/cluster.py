@@ -8,6 +8,11 @@ k-means++ (or seeded random) initial centres drawn with JAX's threefry bits
 (ops/prng.py), the expanded |a|^2 + |b|^2 - 2ab distance with XLA's fused
 multiply-adds, first-index argmin and early-exit Lloyd.
 
+With per-point weights (the weighted oversized split, pixel counts) the
+k-means++ draws go in proportion to w * d^2 and the centres are weighted
+means, as in the JAX package; `_weighted_sums` adds the weighted centre sums
+in the order of XLA's CPU run.
+
 `kmeans_host` and `eps_components_host` are the one-problem wrappers of the
 reference-shaped encode loop: on a CUDA device the eps components run the
 loop kernel (ops/cuda/epscc.py), on the CPU the plain sweep.
@@ -80,6 +85,49 @@ def _sq_dists(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return torch.clamp((a2[:, :, None] + c2[:, None, :]) - 2.0 * ab, min=0.0)
 
 
+def _fma_tiny(a: torch.Tensor, b: torch.Tensor, c: float) -> torch.Tensor:
+    """float32 a*b + c with one rounding, for a, b >= 0 and a positive c far
+    below half an ulp of a*b (XLA contracts `d2 * w + 1e-20`).  The product
+    is exact in float64; c only decides a product that lies exactly halfway
+    between two floats, which then rounds up, not to even."""
+    p = a.double() * b.double()
+    r = p.float()
+    up = torch.nextafter(r, torch.full_like(r, float("inf")))
+    half = (up.double() - r.double()) * 0.5
+    r = torch.where((p - r.double()) == half, up, r)
+    return torch.where(p > 0, r, torch.full_like(r, float(np.float32(c))))
+
+
+def _weighted_sums(labels: torch.Tensor, w: torch.Tensor, points: torch.Tensor,
+                   valid: torch.Tensor, k_max: int) -> torch.Tensor:
+    """(B, k_max, 3) float32 sums of w * point per label, as the JAX
+    package's weighted one-hot product adds them on the CPU (chunks of
+    min(2048, m) points).  While every row's weighted total stays below 2^24
+    each product and partial sum is an exact integer, so any order gives the
+    same floats.  Beyond that: chunks of <= 256 points take XLA's naive dot,
+    a sequential fold of fused multiply-adds in point order; larger chunks
+    Eigen's sharded order (ops/slic.py `_centre_sums`) over rounded
+    products, which a probe matched where the products are exact (ROADMAP
+    §C item 11 keeps the rest)."""
+    from roibasedimagecompression_torch.ops import slic as SLIC
+
+    b, m, _ = points.shape
+    dev = points.device
+    sums = torch.zeros((b, k_max, 3), dtype=torch.float32, device=dev)
+    if float((w.double().sum(dim=1) * 255.0).max()) < 2**24:
+        return sums.scatter_add_(1, labels[..., None].expand(b, m, 3), w[..., None] * points)
+    chunk = min(2048, m)
+    if chunk <= 256 and m == chunk:
+        rows = torch.arange(b, device=dev)
+        for j in range(m):
+            idx = labels[:, j]
+            cur = sums[rows, idx]
+            sums[rows, idx] = fma32(w[:, j, None], points[:, j], cur)
+        return sums
+    prod = (w.double()[..., None] * points.double()).float()
+    return SLIC._centre_sums(labels, prod, valid, m, chunk, k_max)
+
+
 def kmeans_rows(
     points: torch.Tensor,
     valid: torch.Tensor,
@@ -90,6 +138,7 @@ def kmeans_rows(
     seed: int = 42,
     plusplus: bool = True,
     init_centers: torch.Tensor | None = None,
+    weights: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Lloyd k-means on each row of a padded batch; (B, m) int32 labels.
 
@@ -100,6 +149,9 @@ def kmeans_rows(
     vector per k-means++ step serves the whole batch.  init_centers (B,
     k_max, 3) float32, when given, are the initial centres and no draw is
     made; rows >= k are masked out of every assignment, whatever they hold.
+    weights (B, m) float32, when given: the k-means++ draws go in proportion
+    to w * d^2 (the first in proportion to w) and the centres are weighted
+    means; the assignment is unchanged.
     """
     b, m, _ = points.shape
     dev = points.device
@@ -109,6 +161,10 @@ def kmeans_rows(
     rows = torch.arange(b, device=dev)
     key = prng.prng_key(seed)
     neg_inf = torch.tensor(float("-inf"), device=dev)
+    w_pts = None
+    if weights is not None:
+        w_pts = torch.where(valid, weights.to(device=dev, dtype=torch.float32),
+                            torch.zeros((), device=dev))
 
     if init_centers is not None:
         centers = init_centers.to(device=dev, dtype=torch.float32)
@@ -118,7 +174,12 @@ def kmeans_rows(
         # adding 1e-20 to one of them leaves it as it is.
         log_d2 = _log32_table(dev)
         noise = torch.tensor(_gumbel_table(int(seed), m, n_draws), device=dev)
-        first_logits = torch.where(valid, torch.zeros((), device=dev), neg_inf)
+        if w_pts is None:
+            first_logits = torch.where(valid, torch.zeros((), device=dev), neg_inf)
+        else:
+            pos = valid & (w_pts > 0)
+            w_log = prng.log32(torch.where(pos, w_pts + 1e-20, torch.ones((), device=dev)))
+            first_logits = torch.where(pos, w_log, neg_inf)
         first = torch.argmax(noise[0][None, :] + first_logits, dim=1)
         centers = torch.zeros((b, k_max, 3), dtype=torch.float32, device=dev)
         centers[:, 0] = points[rows, first]
@@ -126,7 +187,13 @@ def kmeans_rows(
         min_d2 = torch.where(valid, min_d2, torch.zeros((), device=dev))
         for i in range(1, n_draws):
             g = noise[i]
-            logits = torch.where(valid & (min_d2 > 0), log_d2[min_d2.long()], neg_inf)
+            if w_pts is None:
+                logits = torch.where(valid & (min_d2 > 0), log_d2[min_d2.long()], neg_inf)
+            else:
+                mass = min_d2 * w_pts
+                live = valid & (mass > 0)
+                mass = torch.where(live, _fma_tiny(min_d2, w_pts, 1e-20), torch.ones((), device=dev))
+                logits = torch.where(live, prng.log32(mass), neg_inf)
             has = torch.isfinite(logits).any(dim=1, keepdim=True)
             logits = torch.where(
                 has, logits, torch.where(valid, torch.zeros((), device=dev), neg_inf)
@@ -160,12 +227,17 @@ def kmeans_rows(
     pts_v = points * validf[..., None]
 
     def update(labels, c):
-        # Integer colours, unweighted: the sums are exact in float32
-        # (<= 255 * 65536 < 2^24), so their order is irrelevant.
-        sums = torch.zeros((b, k_max, 3), dtype=torch.float32, device=dev)
-        sums.scatter_add_(1, labels[..., None].expand(b, m, 3), pts_v)
         counts = torch.zeros((b, k_max), dtype=torch.float32, device=dev)
-        counts.scatter_add_(1, labels, validf)
+        if w_pts is None:
+            # Integer colours, unweighted: the sums are exact in float32
+            # (<= 255 * 65536 < 2^24), so their order is irrelevant.
+            sums = torch.zeros((b, k_max, 3), dtype=torch.float32, device=dev)
+            sums.scatter_add_(1, labels[..., None].expand(b, m, 3), pts_v)
+            counts.scatter_add_(1, labels, validf)
+        else:
+            # Pixel counts: integer totals below 2^24, exact in any order.
+            sums = _weighted_sums(labels, w_pts, pts_v, valid, k_max)
+            counts.scatter_add_(1, labels, w_pts)
         new = sums / torch.clamp(counts, min=1.0)[..., None]
         return torch.where(counts[..., None] > 0, new, c)
 

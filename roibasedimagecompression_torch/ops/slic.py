@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from roibasedimagecompression_torch import native
+from roibasedimagecompression_torch.ops import cc as CC
 from roibasedimagecompression_torch.ops import colors as COL
 from roibasedimagecompression_torch.ops import conv as CONV
 from roibasedimagecompression_torch.ops.cuda import slic_assign as SA
@@ -59,16 +60,17 @@ def _eigen_kc(k: int) -> int:
 
 
 def _block_sums(x: torch.Tensor, rows: torch.Tensor, n_rows: int, loop: bool = False) -> torch.Tensor:
-    """(n_rows, 5) float32: x[blk, j] added into row rows[blk, j], the pixels
+    """(n_rows, d) float32: x[blk, j] added into row rows[blk, j], the pixels
     of each block one after another in float32 (rows of two blocks never
     meet).  On the CPU numpy's unbuffered `add.at` adds element by element in
     order; on the card (or with `loop`) pixel j of every block goes in at
     once, kc launches in all."""
+    d = x.shape[-1]
     if x.device.type == "cpu" and not loop:
-        acc = np.zeros((n_rows, 5), np.float32)
-        np.add.at(acc, rows.reshape(-1).numpy(), x.reshape(-1, 5).numpy())
+        acc = np.zeros((n_rows, d), np.float32)
+        np.add.at(acc, rows.reshape(-1).numpy(), x.reshape(-1, d).numpy())
         return torch.from_numpy(acc)
-    acc = torch.zeros((n_rows, 5), dtype=torch.float32, device=x.device)
+    acc = torch.zeros((n_rows, d), dtype=torch.float32, device=x.device)
     x, rows = x.transpose(0, 1).contiguous(), rows.t().contiguous()
     for j in range(x.shape[0]):
         acc.index_add_(0, rows[j], x[j])
@@ -77,7 +79,7 @@ def _block_sums(x: torch.Tensor, rows: torch.Tensor, n_rows: int, loop: bool = F
 
 def _centre_sums(ids: torch.Tensor, feats: torch.Tensor, valid: torch.Tensor,
                  m: int, chunk: int, k: int) -> torch.Tensor:
-    """(B, K, 5) float32 sums of the valid pixels' features per centre, added
+    """(B, K, d) float32 sums of the valid pixels' features per centre, added
     in the order of the JAX package's one-hot update on the CPU.
 
     XLA scans the m pixels in chunks (running sum += chunk sum).  Eigen
@@ -90,6 +92,7 @@ def _centre_sums(ids: torch.Tensor, feats: torch.Tensor, valid: torch.Tensor,
     """
     b, mp = ids.shape
     dev = feats.device
+    nf = feats.shape[-1]
     n_chunks = -(-m // chunk)
     span = n_chunks * chunk
     shard = chunk // _EIGEN_SHARDS
@@ -98,18 +101,18 @@ def _centre_sums(ids: torch.Tensor, feats: torch.Tensor, valid: torch.Tensor,
     x = torch.where(valid[..., None], feats, torch.zeros((), device=dev))
     i = ids.long()
     if span > mp:
-        x = torch.cat([x, x.new_zeros((b, span - mp, 5))], dim=1)
+        x = torch.cat([x, x.new_zeros((b, span - mp, nf))], dim=1)
         i = torch.cat([i, i.new_zeros((b, span - mp))], dim=1)
-    x = x.reshape(b * n_chunks * _EIGEN_SHARDS, shard, 5)
+    x = x.reshape(b * n_chunks * _EIGEN_SHARDS, shard, nf)
     i = i.reshape(b * n_chunks * _EIGEN_SHARDS, shard)
     if n_kc * kc > shard:
-        x = torch.cat([x, x.new_zeros((x.shape[0], n_kc * kc - shard, 5))], dim=1)
+        x = torch.cat([x, x.new_zeros((x.shape[0], n_kc * kc - shard, nf))], dim=1)
         i = torch.cat([i, i.new_zeros((i.shape[0], n_kc * kc - shard))], dim=1)
     n_blocks = x.shape[0] * n_kc
     # Row of (block, centre) in the accumulator, for every pixel in order.
     rows = torch.arange(n_blocks, device=dev)[:, None] * k + i.reshape(n_blocks, kc)
-    acc = _block_sums(x.reshape(n_blocks, kc, 5), rows, n_blocks * k)
-    acc = acc.view(b, n_chunks, _EIGEN_SHARDS, n_kc, k, 5)
+    acc = _block_sums(x.reshape(n_blocks, kc, nf), rows, n_blocks * k)
+    acc = acc.view(b, n_chunks, _EIGEN_SHARDS, n_kc, k, nf)
     s = acc[:, :, :, 0]
     for q in range(1, n_kc):
         s = s + acc[:, :, :, q]
@@ -368,7 +371,7 @@ def slic_many(
             ).cpu().numpy()
         with stage_timer("slic.conn"):
             labels_rows = _enforce_connectivity_bucket(
-                assign_b, masks_b, ids, metas, min_size_factor
+                assign_b, masks_b, ids, metas, min_size_factor, device
             )
         for row, i in enumerate(ids):
             mask, centers_yx, _, _, transposed = metas[i]
@@ -382,15 +385,47 @@ def slic_many(
     return out
 
 
-def _enforce_connectivity_bucket(assign_b, masks_b, ids, metas, min_size_factor):
+def _enforce_connectivity_bucket(assign_b, masks_b, ids, metas, min_size_factor, device):
     """Split segments into connected fragments and absorb small ones into
-    neighbors (skimage _enforce_label_connectivity_cython behavior), on the
-    host runtime, threaded across the bucket rows."""
+    neighbors (skimage _enforce_label_connectivity_cython behavior).
 
-    def one(row):
-        _, centers_yx, _, area, _ = metas[ids[row]]
+    With the runtime: its union-find fragments and BFS adoption, threaded
+    across the bucket rows.  Without it, the JAX package's device form on
+    `device`, which gives other labels than the runtime (so other bytes, in
+    the JAX package too): 4-connected fragments of equal labels by min-label
+    propagation, compacted by np.unique; fragments of at least min_size
+    pixels are kept (the largest when none is); every other pixel takes the
+    label of its nearest kept pixel by jump flooding."""
+    if native.available():
+        def one(row):
+            _, centers_yx, _, area, _ = metas[ids[row]]
+            min_size = max(1, int(min_size_factor * area / len(centers_yx)))
+            return native.slic_enforce(assign_b[row], masks_b[row], min_size)
+
+        with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
+            return list(pool.map(one, range(len(ids))))
+    with stage_timer("slic.frag"):
+        masks_d = torch.from_numpy(masks_b).to(device)
+        frag_b = CC.propagate_equal_labels(
+            torch.from_numpy(assign_b.astype(np.int32)).to(device), masks_d, connectivity=4
+        ).cpu().numpy()
+    compact_b = np.zeros(assign_b.shape, np.int32)
+    keep_b = np.zeros(assign_b.shape, bool)
+    for row, i in enumerate(ids):
+        mask, centers_yx, _, area, _ = metas[i]
+        h0, w0 = mask.shape
         min_size = max(1, int(min_size_factor * area / len(centers_yx)))
-        return native.slic_enforce(assign_b[row], masks_b[row], min_size)
-
-    with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
-        return list(pool.map(one, range(len(ids))))
+        fg = np.zeros(masks_b.shape[1:], bool)
+        fg[:h0, :w0] = mask
+        _, inv = np.unique(frag_b[row][fg], return_inverse=True)
+        sizes = np.bincount(inv)
+        keep_frag = sizes >= min_size
+        if not keep_frag.any():
+            keep_frag[np.argmax(sizes)] = True
+        compact_b[row][fg] = inv
+        keep_b[row][fg] = keep_frag[inv]
+    with stage_timer("slic.adopt"):
+        adopted = CC.adopt_labels(
+            torch.from_numpy(compact_b).to(device), torch.from_numpy(keep_b).to(device), masks_d
+        ).cpu().numpy()
+    return [adopted[row] for row in range(len(ids))]

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from roibasedimagecompression_torch import config as cfg
+from roibasedimagecompression_torch import native
 from roibasedimagecompression_torch.io import container
 from roibasedimagecompression_torch.models import codec as CODEC
 from roibasedimagecompression_torch.models import quantize_batched as QB
@@ -69,7 +70,6 @@ def encode_many(
     try:
         if _start_gate is not None:
             _start_gate.wait()
-        CODEC._check_ported(config)
         return _encode_many_inner(images, config, DEV.resolve(device), _frontend_done)
     finally:
         # Always unblock the successor, even on failure mid-frontend.
@@ -99,14 +99,16 @@ def _segment_stack(batch: np.ndarray, config: cfg.CodecConfig, device,
             if config.fast_edges:
                 lows, highs = CANNY.fast_thresholds_many(batch, device)
             else:
-                lows, highs = CANNY.select_thresholds_many(batch)
+                lows, highs = CANNY.select_thresholds_many(batch, device)
         with stage_timer("s.roi_masks"):
             def one_mask(k):
-                return RF.roi_masks_fast(batch[k], config, lows[k], highs[k])
+                return RF.roi_masks_fast(batch[k], config, lows[k], highs[k], device)
 
             # The mask chain is native host work that releases the
             # interpreter lock; on one core a pool only adds switches.
-            if (os.cpu_count() or 1) > 1:
+            # Without the runtime it is the device graph, one image at a
+            # time.
+            if native.available() and (os.cpu_count() or 1) > 1:
                 with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
                     masks = list(pool.map(one_mask, range(b)))
             else:
@@ -117,7 +119,7 @@ def _segment_stack(batch: np.ndarray, config: cfg.CodecConfig, device,
     # 2. Batched segmentation -> one stacked tall segment map.
     with stage_timer("s.extract"):
         regions_per_image = [
-            CODEC._extract_and_assign(batch[k], roi_masks[k], nonroi_masks[k], config, min_size)
+            CODEC._extract_and_assign(batch[k], roi_masks[k], nonroi_masks[k], config, min_size, device)
             for k in range(b)
         ]
     if frontend_done is not None:
@@ -167,14 +169,18 @@ def _encode_many_inner(images: list, config: cfg.CodecConfig, device,
     # pair table, as the JAX package does.
     canvas = CODEC.canvas_tiers(config)
     device_pairs = None
-    if dbatch is not None and not canvas and os.environ.get("RHCCQ_DEVICE_PAIRS", "1") != "0":
+    # Without the native runtime the table is the host's, as in the JAX
+    # package (its repair runs on the runtime).
+    if (dbatch is not None and not canvas and native.available()
+            and os.environ.get("RHCCQ_DEVICE_PAIRS", "1") != "0"):
         with stage_timer("t1.pairs_dev"):
             device_pairs = PAIRS.DevicePairTable(tall_seg, images_dev=dbatch.img)
     with stage_timer("s.tier1"):
         table = QB.tier1_table(
             tall_img, tall_seg, seg_quality, device, seed=config.seed,
             weighted=config.weighted_palette, split_method=config.split_method,
-            split_margin=config.split_margin, device_pairs=device_pairs,
+            split_margin=config.split_margin, weighted_split=config.weighted_split,
+            device_pairs=device_pairs,
         )
 
     if canvas:
@@ -215,7 +221,7 @@ def _finish_canvas_path(table, tall_seg, seg_group, batch, config, device) -> li
         _, t3_list = CODEC.tiers23_colors_many(t1_list, group_maps, config, device)
 
     def finish(k: int) -> bytes:
-        palette, indices = CODEC.canvas_palette_indices(t3_list[k], t1_list[k], config)
+        palette, indices = CODEC.canvas_palette_indices(t3_list[k], t1_list[k], config, device)
         palette = REFINE.maybe_refit(batch[k], palette, indices, config)
         return container.pack(palette, indices, level=config.container_level)
 

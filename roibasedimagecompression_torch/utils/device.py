@@ -24,3 +24,9 @@ def resolve(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def or_cpu(device) -> torch.device:
+    """The device of a library function's own work: the caller's, or the
+    CPU when None (the entry points resolve theirs above)."""
+    return torch.device("cpu" if device is None else device)

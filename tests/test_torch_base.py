@@ -79,7 +79,9 @@ def test_port_imports_no_jax():
     assert {"roibasedimagecompression_torch.__main__", "roibasedimagecompression_torch.eval.report",
             "roibasedimagecompression_torch.models.enhance", "roibasedimagecompression_torch.models.roi",
             "roibasedimagecompression_torch.models.quantize", "roibasedimagecompression_torch.ops.morphology",
-            "roibasedimagecompression_torch.ops.distance"} <= set(modules)
+            "roibasedimagecompression_torch.ops.distance", "roibasedimagecompression_torch.ops.cc",
+            "roibasedimagecompression_torch.ops.canny", "roibasedimagecompression_torch.ops.unique",
+            "roibasedimagecompression_torch.models.roi_fused"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
@@ -99,6 +101,14 @@ def test_port_imports_no_jax():
         "loop = rtt.encode(img, rtt.CodecConfig(batched=False), device='cpu')\n"
         "assert rtt.decode(loop).shape == img.shape\n"
         "assert metrics.quality_metrics(img, out, device='cpu')['psnr'] > 28\n"
+        "from roibasedimagecompression_torch import native\n"
+        "from roibasedimagecompression_torch.models import codec\n"
+        "native._off = True\n"
+        "assert not native.available()\n"
+        "assert rtt.decode(rtt.encode(img, rtt.CodecConfig(region_fusion=True, weighted_split=True),"
+        " device='cpu')).shape == img.shape\n"
+        "assert codec.encode_debug(img, device='cpu')['tier3'].shape == img.shape\n"
+        "native._off = False\n"
         "import tempfile, os\n"
         "from roibasedimagecompression_torch import __main__ as cli\n"
         "from roibasedimagecompression_torch.io import image_io\n"

@@ -170,13 +170,15 @@ def _coarse_palette_indices(img):
 
 
 def test_unported_options_raise(monkeypatch):
+    """No CodecConfig field raises any more: region fusion and the weighted
+    split (ROADMAP A12c) encode, on both paths, to the JAX package's bytes."""
+    import roibasedimagecompression_tpu as rtc
+
     img = synthetic_image(1, 64, 64)
-    for cfg, item in ((tcfg.CodecConfig(region_fusion=True), "A12c"),
-                      (tcfg.CodecConfig(weighted_split=True), "A12c"),
-                      (tcfg.CodecConfig(batched=False, region_fusion=True), "A12c"),
-                      (tcfg.CodecConfig(batched=False, weighted_split=True), "A12c")):
-        with pytest.raises(NotImplementedError, match=item):
-            rtt.encode(img, cfg, device="cpu")
+    for kw in (dict(region_fusion=True), dict(weighted_split=True),
+               dict(batched=False, region_fusion=True), dict(batched=False, weighted_split=True)):
+        assert rtt.encode(img, tcfg.CodecConfig(**kw), device="cpu") == rtc.encode(
+            img, jcfg.CodecConfig(**kw))
     # batched=False, the reference-shaped loop, is ported: it encodes.
     loop = rtt.encode(img, tcfg.CodecConfig(batched=False), device="cpu")
     assert rtt.decode(loop).shape == img.shape

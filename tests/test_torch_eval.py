@@ -345,7 +345,7 @@ def test_kmeans_padded_init_rows_never_win():
 
 
 def test_split_methods_encode_and_raise():
-    """encode takes every split method; the options of ROADMAP A12 raise."""
+    """encode takes every split method; an unknown one raises."""
     import roibasedimagecompression_torch as rtt
 
     img = synthetic_image(5, 96, 128)
@@ -411,12 +411,17 @@ def test_split_overrides_from_the_environment(slic_mode, monkeypatch, env, confi
 @pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("value,raises", [("1", True), ("yes", True), ("0", False), ("", False)])
 def test_weighted_split_from_the_environment_raises(monkeypatch, value, raises):
+    """RHCCQ_WEIGHTED_SPLIT turns the weighted split on (`raises`: it used
+    to raise naming ROADMAP A12c) or off, read alike by both packages: the
+    same bytes through `encode` and `encode_many`, and with it on other
+    bytes than with it off (the k-means split carries the weights)."""
+    import roibasedimagecompression_tpu as rtc
+
     img = _noisy(72, 64, 80, 14.0)
+    kw = dict(split_method="kmeans")
+    plain = rtt.encode(img, tcfg.CodecConfig(**kw), device="cpu")
     monkeypatch.setenv("RHCCQ_WEIGHTED_SPLIT", value)
-    if raises:
-        with pytest.raises(NotImplementedError, match="A12c"):
-            rtt.encode(img, device="cpu")
-        with pytest.raises(NotImplementedError, match="A12c"):
-            TSTREAM.encode_many([img], device="cpu")
-    else:
-        assert rtt.decode(rtt.encode(img, device="cpu")).shape == img.shape
+    ours = rtt.encode(img, tcfg.CodecConfig(**kw), device="cpu")
+    assert ours == rtc.encode(img, jcfg.CodecConfig(**kw))
+    assert TSTREAM.encode_many([img], tcfg.CodecConfig(**kw), device="cpu") == [ours]
+    assert (ours != plain) == raises

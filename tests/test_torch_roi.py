@@ -176,19 +176,33 @@ def test_loop_bytes_match_jax(seed):
 
 
 def test_loop_without_native_runtime_raises_a13(monkeypatch):
-    """The loop's ROI path needs the host runtime; without it the port names
-    ROADMAP A13 instead of sliding to a device fallback."""
+    """A runtime that fails to load raises: the port never slides onto the
+    device branches by itself.  Under RHCCQ_NATIVE=0 the same calls run
+    those branches (ROADMAP A13), and the loop writes the JAX package's
+    bytes without its runtime."""
+    import roibasedimagecompression_tpu as rtc
+    from roibasedimagecompression_tpu import native as jnative
+
     def unavailable():
         raise OSError("no runtime")
 
-    monkeypatch.setattr(native, "get_lib", unavailable)
     img = synthetic_image(7, 64, 80)
-    for fn in (lambda: TCANNY.get_edge_map(img),
-               lambda: TCANNY.hysteresis_host(np.ones((4, 4), np.float32), np.ones((4, 4), bool), 1, 2),
-               lambda: TCC.connected_components(np.ones((4, 4), bool)),
-               lambda: rtt.encode(img, tcfg.CodecConfig(batched=False), device="cpu")):
-        with pytest.raises(NotImplementedError, match="A13"):
-            fn()
+    calls = (lambda: TCANNY.get_edge_map(img),
+             lambda: TCC.connected_components(np.ones((4, 4), bool)),
+             lambda: rtt.encode(img, tcfg.CodecConfig(batched=False), device="cpu"))
+    with monkeypatch.context() as m:
+        m.setattr(native, "get_lib", unavailable)
+        for fn in calls:
+            with pytest.raises(OSError, match="no runtime"):
+                fn()
+    monkeypatch.setattr(native, "_off", True)
+    monkeypatch.setattr(jnative, "get_lib", lambda: None)
+    assert TCANNY.hysteresis_host(np.ones((4, 4), np.float32), np.ones((4, 4), bool), 1, 2) is None
+    edges, pair = calls[0]()
+    assert edges.shape == img.shape[:2] and pair == JCANNY.get_edge_map(img)[1]
+    labels, num = calls[1]()
+    assert num == 2 and (labels == 1).all()
+    assert calls[2]() == rtc.encode(img, jcfg.CodecConfig(batched=False))
 
 
 @pytest.mark.cuda

@@ -407,8 +407,10 @@ def test_encode_many_argument_laws(monkeypatch):
     batched = TSTREAM.encode_many([a], device="cpu")
     assert TSTREAM.encode_many([a], tcfg.CodecConfig(batched=False), device="cpu") == batched
     assert TSTREAM.encode_stream([[a]], tcfg.CodecConfig(batched=False), device="cpu") == [batched]
-    with pytest.raises(NotImplementedError, match="A12c"):
-        TSTREAM.encode_many([a], tcfg.CodecConfig(region_fusion=True), device="cpu")
+    # Region fusion is ported (it used to raise naming ROADMAP A12c): the
+    # batch entry point writes the one-image path's bytes.
+    fused = tcfg.CodecConfig(region_fusion=True)
+    assert TSTREAM.encode_many([a], fused, device="cpu") == [rtt.encode(a, fused, device="cpu")]
     # The canvas tiers path is ported: fill_black_holes and
     # RHCCQ_CANVAS_TIERS=1 encode, the latter to the composed path's bytes.
     composed = TSTREAM.encode_many([a], device="cpu")
