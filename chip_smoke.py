@@ -80,11 +80,32 @@ Phases, in order; any failed check exits non-zero:
      same call on the CPU under the switch, byte for byte, with counts,
      stage seconds and connected-components passes read around each, and
      the propagation's card time per pass;
- 13. cover: every (form, B, MP, K) and (B, N) that phases 5 and 7-12
+ 13. side modules, on the third image of phase 7's batch (seed 102; the
+     first two have no ROI pixels at CodecConfig()) and its ROI mask, each on the
+     card against the same call on the CPU: Zhang-Suen thinning, the five
+     connect strategies (Voronoi on the mask sampled every 8th pixel: its
+     cells are host geometry, quadratic in the points), the legacy thin
+     structure filter and the watershed, all equal; the bilateral filter
+     (equal, or at most 1 level on at most 0.1 % of the pixels); spline
+     compression of the longest SLIC segment boundary (host); card seconds
+     of each;
+ 14. entry surface: `entry()`'s core (256 x 256) and `analysis_step` of
+     that image at 768x512 (8 x 8 centres, 4096 palette slots) on the card
+     against the CPU, all nine outputs equal; `batched_analysis_step` of the
+     8 batch images on the card, equal to each image's own call; warm
+     seconds, both kernels' counts and shapes; `encode_many` of the 8 and
+     `encode_stream` of 2 batches on a mesh of ["cuda:0"] * 2 (and of every
+     card when there are more), byte-equal to phases 7 and 8 without a
+     mesh; `dryrun_multichip(2, devices=["cuda:0"] * 2)`; a `device_trace`
+     of one encode holding a kernel event; one operation-counted
+     `encode_many` of 8 (executed operations, wall, share of the card's
+     float32 peak); `identity_report()` and the build pack's freshness
+     before and after `prewarm`;
+ 15. cover: every (form, B, MP, K) and (B, N) that phases 5 and 7-14
      launched and phases 3 and 4 did not check is checked against the
      plain version now, so no path runs a kernel at a shape the run has not
      held;
- 14. one JSON line of kernel measurements, then the card line, then the
+ 16. one JSON line of kernel measurements, then the card line, then the
      final {"ok": true, ...} line.
 
 Without CUDA, or without the package beside this file, it exits non-zero
@@ -93,6 +114,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -803,7 +825,7 @@ def run_stream(device, batches, first_batch_datas, deadline=300.0, profile=True)
             deadline, "encode_stream(workers=2) under the profiler")
     return {"seconds": seconds, "images_per_second": n / seconds, "sequential_seconds": seq_seconds,
             "sequential_images_per_second": n / seq_seconds, "launches": launches, "shapes": shapes,
-            "idle": idle}
+            "idle": idle, "datas": seq}
 
 
 CLI_OPTIONS = (("mediancut", ["--split-method", "mediancut"]),
@@ -1237,6 +1259,206 @@ def device_idle_share(fn) -> dict:
             "idle_share": 1.0 - busy_us / window_us}
 
 
+def timed(fn, device):
+    """(result, host seconds) of `fn`, synchronised on the card."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def run_side(device, image, refs) -> dict:
+    """Phase 13: the side modules on the card against the CPU; the CPU calls
+    run on `refs`' thread meanwhile."""
+    import numpy as np
+    import torch
+
+    from roibasedimagecompression_torch import config as cfg
+    from roibasedimagecompression_torch.models import codec, roi_extras, roi_fused, spline, spline_viz
+    from roibasedimagecompression_torch.ops import bilateral, canny, contours, thinning
+
+    cpu = torch.device("cpu")
+    config = cfg.CodecConfig()
+    low, high = canny.select_thresholds_pair(image)
+    roi, nonroi = roi_fused.roi_masks_fast(image, config, low, high)
+    out = {"roi_pixels": int(roi.sum())}
+    check(out["roi_pixels"] >= 1000, f"the image's ROI mask has {out['roi_pixels']} pixels: nothing to test on")
+
+    calls = {
+        "thinning": lambda d: thinning.zhang_suen_thinning(torch.from_numpy(roi).to(d)).cpu().numpy(),
+        "remove_thin_structures_v1": lambda d: roi_extras.remove_thin_structures_v1(
+            roi, thinness_threshold=0.3, device=d),
+        "watershed": lambda d: roi_extras.watershed_segments(image, roi, 100, device=d),
+        "bilateral": lambda d: bilateral.bilateral_filter(
+            torch.from_numpy(image).to(d), 9, 75.0, 75.0).cpu().numpy(),
+    }
+    for method in ("dilation", "closing", "skeleton", "region_growing", "voronoi"):
+        mask = roi[::8, ::8] if method == "voronoi" else roi
+        calls[f"connect {method}"] = lambda d, m=mask, me=method: roi_extras.connect_nearby_pixels(
+            m, connection_distance=3, method=me, min_region_size=5, device=d)
+    wanted = {label: refs.submit(fn, cpu) for label, fn in calls.items()}
+
+    def bilateral_rule(a, b):
+        diff = np.abs(a.astype(np.int16) - b.astype(np.int16))
+        out["bilateral_diff"] = {"pixels": int((diff.max(axis=-1) > 0).sum()), "max": int(diff.max())}
+        return diff.max() <= 1 and (diff.max(axis=-1) > 0).mean() <= 0.001
+
+    for label, fn in calls.items():
+        fn(device)  # first call: allocations, kernel loads
+        card, secs = timed(lambda: fn(device), device)
+        equal = bilateral_rule if label == "bilateral" else np.array_equal
+        check(equal(card, wanted[label].result()), f"side module {label}: the card differs from the CPU")
+        out[label] = {"seconds": secs}
+        if label == "watershed":
+            out[label]["segments"] = int(len(np.unique(card[roi])))
+
+    regions = codec._extract_and_assign(image, roi, nonroi, config, cfg.min_region_size(image.size))
+    seg_map = codec.build_segment_map(image, *regions, config, device)[0]
+    t0 = time.perf_counter()
+    bounds = contours.segment_boundaries(seg_map, seg_map > 0)
+    longest = max(bounds, key=lambda d: d["num_points"])
+    coords = np.asarray(longest["boundary_coords"])
+    result = spline.compress_shape(coords, num_sublists=3, compression_ratio=0.2)
+    keys = spline.minimal_storage(result)
+    recon = spline.reconstruct_from_minimal(keys, num_points=len(coords))
+    quality = spline_viz.quality_metrics(coords, recon)
+    check(recon.shape == coords.shape and np.isfinite(recon).all() and np.isfinite(quality["mean_error"]),
+          f"spline reconstruction of the longest boundary failed: {quality}")
+    out["spline"] = {"host_seconds": time.perf_counter() - t0, "segments": len(bounds),
+                     "boundary_points": longest["num_points"], "key_points": len(keys),
+                     "mean_error": result["overall_metrics"]["mean_error"], "quality": quality,
+                     "analysis": spline_viz.compression_analysis(result).splitlines()[:5]}
+    return out
+
+
+def run_entry_surface(device, batches, stream_datas, refs) -> dict:
+    """Phase 14: the entry surface on the card; `stream_datas` are phase 8's
+    encode_many bytes of `batches` without a mesh; the CPU references run on
+    `refs`' thread meanwhile."""
+    import numpy as np
+    import torch
+
+    import roibasedimagecompression_torch as rtt
+    from roibasedimagecompression_torch import config as cfg
+    from roibasedimagecompression_torch import entry
+    from roibasedimagecompression_torch.models import pipeline_jit as PJ
+    from roibasedimagecompression_torch.parallel import mesh as M
+    from roibasedimagecompression_torch.parallel import stream as STREAM
+    from roibasedimagecompression_torch.utils import cachekey, flops, profiling, warmup
+
+    cpu = torch.device("cpu")
+    batch, batch_datas = batches[0], stream_datas[0]
+    out = {"launches": {}, "shapes": {}}
+    totals = None
+
+    def add_counts(label):
+        nonlocal totals
+        launches, shapes = read_counts()
+        out["launches"][label], out["shapes"][label] = launches, shapes
+        totals = launches if totals is None else {k: totals[k] + launches[k] for k in totals}
+        return launches
+
+    def equal_outputs(a, b, what):
+        for k in PJ.OUTPUTS:
+            check(a[k].shape == b[k].shape and torch.equal(a[k].cpu(), b[k].cpu()),
+                  f"{what}: output {k} differs")
+
+    fn, args = entry.entry()
+    kw = {"n_centers_side": 8, "palette_cap": 4096, "quality": 20.0}
+    entry_ref = refs.submit(fn, *args, device=cpu)
+    analysis_ref = refs.submit(lambda: timed(lambda: PJ.analysis_step(batch[0], device=cpu, **kw), cpu))
+
+    fn(*args, device=device)
+    reset_counts()
+    card, secs = timed(lambda: fn(*args, device=device), device)
+    add_counts("entry")
+    equal_outputs(card, entry_ref.result(), "entry() on the card against the CPU")
+    out["entry_seconds"] = secs
+
+    PJ.analysis_step(batch[0], device=device, **kw)
+    reset_counts()
+    card, secs = timed(lambda: PJ.analysis_step(batch[0], device=device, **kw), device)
+    launches = add_counts("analysis_step")
+    for name in ("slic_assign", "eps_components"):
+        check(launches[name] > 0, f"analysis_step launched {name} no time on the card")
+    out["analysis_seconds"] = secs
+    cpu_out, out["analysis_cpu_seconds"] = analysis_ref.result()
+    equal_outputs(card, cpu_out, "analysis_step 768x512 on the card against the CPU")
+    out["palette_count"] = int(card["palette_count"])
+
+    stacked = np.stack(batch)
+    PJ.batched_analysis_step(stacked, device=device, **kw)
+    reset_counts()
+    many, secs = timed(lambda: PJ.batched_analysis_step(stacked, device=device, **kw), device)
+    add_counts("batched_analysis_step")
+    out["batched_seconds"] = secs
+    for k, img in enumerate(batch):
+        one = card if k == 0 else PJ.analysis_step(img, device=device, **kw)
+        equal_outputs({n: v[k] for n, v in many.items()}, one, f"batched_analysis_step row {k}")
+
+    one = str(device) if device.type == "cpu" else f"cuda:{device.index or 0}"
+    meshes = [M.make_mesh(2, devices=[one] * 2)]
+    if torch.cuda.device_count() > 1:
+        meshes.append(M.make_mesh(torch.cuda.device_count()))
+    out["mesh"] = []
+    for mesh in meshes:
+        STREAM.encode_many(batch[:2], cfg.CodecConfig(), mesh=mesh)  # this mesh's first use
+        reset_counts()
+        datas, secs = timed(lambda: STREAM.encode_many(batch, cfg.CodecConfig(), mesh=mesh), device)
+        add_counts(f"encode_many mesh {mesh.shape}")
+        check(datas == batch_datas, f"encode_many on {mesh} differs from encode_many without a mesh")
+        reset_counts()
+        got, ssecs = timed(lambda: run_with_deadline(
+            lambda: STREAM.encode_stream(batches[:2], cfg.CodecConfig(), workers=2, mesh=mesh),
+            300.0, f"encode_stream on {mesh}"), device)
+        add_counts(f"encode_stream mesh {mesh.shape}")
+        check(got == stream_datas[:2], f"encode_stream on {mesh} differs from sequential encode_many")
+        out["mesh"].append({"mesh": repr(mesh), "encode_many_seconds": secs, "encode_stream_seconds": ssecs})
+
+    t0 = time.perf_counter()
+    out["dryrun"] = entry.dryrun_multichip(2, devices=[one] * 2)
+    out["dryrun_seconds"] = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as trace_dir:  # a trace of one encode is tens of MB
+        for attempt in range(3):
+            with profiling.device_trace(trace_dir) as prof:
+                rtt.encode(batch[0], device=device)
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+            with open(prof.trace_path) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = [e for e in events if e.get("cat") == "kernel"]
+            if kernels:
+                break
+        out["trace"] = {"bytes": os.path.getsize(prof.trace_path), "kernel_events": len(kernels),
+                        "attempts": attempt + 1}
+    check(bool(kernels), "three device traces of one encode held no kernel event")
+
+    flops.enable()
+    flops.reset()
+    try:
+        _, secs = timed(lambda: STREAM.encode_many(batch, cfg.CodecConfig(), device), device)
+        ops, nbytes = flops.totals()
+    finally:
+        flops.disable()
+        flops.reset()
+    out["flops"] = {"executed_ops": ops, "bytes": nbytes, "wall_seconds": secs,
+                    "share_of_peak": ops / secs / flops.H100_PEAK_F32}
+
+    out["identity"] = cachekey.identity_report()
+    notes = []
+    out["fresh_before_prewarm"] = warmup.check_pack_freshness(log=notes.append)
+    out["prewarm_entries"] = warmup.prewarm(block=True, device=device)
+    out["fresh_after_prewarm"] = warmup.check_pack_freshness(log=notes.append)
+    out["freshness_notes"] = notes
+    check(out["fresh_after_prewarm"], f"the build pack is not fresh after prewarm: {notes}")
+    out["launch_totals"] = totals
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1477,7 +1699,48 @@ def main() -> int:
                          for name in launches_cli}
 
     print(f"[time] phase 12 ended at {time.perf_counter() - t_script:.1f} s")
-    # -- 13. cover ------------------------------------------------------------------
+    # -- 13. side modules -------------------------------------------------------------
+    t_side = time.perf_counter()
+    # The CPU references of phases 13 and 14 run on a thread of their own
+    # while the card runs its calls.
+    refs = concurrent.futures.ThreadPoolExecutor(max_workers=1, thread_name_prefix="cpu-refs")
+    sd = run_side(device, batches[0][2], refs)
+    for label, rec in sd.items():
+        print(f"[side] {label}: {json.dumps(rec)} [{card}]")
+    print("[side] thinning, the five connect strategies, remove_thin_structures_v1 and the watershed "
+          f"equal on the card and the CPU; bilateral {'equal' if not sd['bilateral_diff']['pixels'] else 'within 1 level on <= 0.1 %'}")
+    print(f"[side] phase seconds: {time.perf_counter() - t_side:.1f}")
+
+    print(f"[time] phase 13 ended at {time.perf_counter() - t_script:.1f} s")
+    # -- 14. entry surface ------------------------------------------------------------
+    t_drv = time.perf_counter()
+    dv = run_entry_surface(device, batches, sr["datas"], refs)
+    refs.shutdown()
+    print(f"[entry] entry() (256 x 256) on the card: {dv['entry_seconds']:.3f} s, nine outputs equal to the CPU [{card}]")
+    print(f"[entry] analysis_step 768x512 (8 x 8 centres, 4096 slots, {dv['palette_count']} colours): "
+          f"{dv['analysis_seconds']:.3f} s warm on the card, {dv['analysis_cpu_seconds']:.3f} s on the CPU, "
+          f"nine outputs equal [{card}]")
+    print(f"[entry] batched_analysis_step of 8: {dv['batched_seconds']:.3f} s warm, each row equal to its "
+          f"image's own call [{card}]")
+    for label, rec in dv["launches"].items():
+        print(f"[entry] {label} launches: {rec}")
+        for name, hist in dv["shapes"][label].items():
+            print(f"[entry] {label} launch shapes, {name}: {json.dumps(hist)}")
+    for rec in dv["mesh"]:
+        print(f"[entry] {rec['mesh']}: encode_many of 8 {rec['encode_many_seconds']:.3f} s (without a mesh "
+              f"{runs['default']['seconds']:.3f} s), encode_stream of 2 batches {rec['encode_stream_seconds']:.3f} s; "
+              f"bytes equal to the runs without a mesh [{card}]")
+    print(f"[entry] dryrun_multichip(2, cuda:0 x 2): {dv['dryrun_seconds']:.1f} s, {json.dumps(dv['dryrun'])}")
+    print(f"[entry] device_trace of one encode: {json.dumps(dv['trace'])}")
+    print(f"[entry] operation-counted encode_many of 8: {json.dumps(dv['flops'])} [{card}]")
+    print(f"[entry] identity: {json.dumps(dv['identity'])}")
+    print(f"[entry] build pack fresh before prewarm {dv['fresh_before_prewarm']}, after "
+          f"{dv['fresh_after_prewarm']} ({dv['prewarm_entries']} manifest entries); {dv['freshness_notes']}")
+    print(f"[entry] phase seconds: {time.perf_counter() - t_drv:.1f}")
+    launches_entry = dv["launch_totals"]
+
+    print(f"[time] phase 14 ended at {time.perf_counter() - t_script:.1f} s")
+    # -- 15. cover ------------------------------------------------------------------
     # Whatever shape a path launched a kernel at, beyond those of phases 3 and
     # 4, is held against the plain version here.
     def slic_key(r):
@@ -1499,22 +1762,25 @@ def main() -> int:
           f"but launched by no path: slic_assign {[slic_key(r) for r in k1 if not r['on_path']]}, "
           f"packed eps loop {[r['shape'] for r in k2_packed if not r['on_path']]}")
 
-    print(f"[time] phase 13 ended at {time.perf_counter() - t_script:.1f} s")
-    # -- 14. kernels line ------------------------------------------------------------
+    print(f"[time] phase 15 ended at {time.perf_counter() - t_script:.1f} s")
+    # -- 16. kernels line ------------------------------------------------------------
     # `launches` count the main paths, each read around its own run from 0:
     # the one-image encodes of phase 5, the warm encode_many at CodecConfig()
     # of phase 7, the in-process CLI encodes of phase 9, the canvas runs of
     # phase 10 (kernel 1's direct form runs in its RHCCQ_SLIC_PALLAS=1
-    # encode), the loop's two encodes of phase 11, and phase 12's option
-    # runs and runs without the runtime; the stream's are beside them.
+    # encode), the loop's two encodes of phase 11, phase 12's option runs and
+    # runs without the runtime, and phase 14's entry surface (entry(),
+    # analysis_step, batched_analysis_step and the mesh encodes); the
+    # stream's are beside them.
     def launches_of(name):
         return {"launches": launches_one[name] + launches_batch[name] + launches_cli[name]
                 + launches_canvas[name] + launches_loop[name] + launches_options[name]
-                + launches_nonative[name],
+                + launches_nonative[name] + launches_entry[name],
                 "launches_one_image": launches_one[name], "launches_batch": launches_batch[name],
                 "launches_cli": launches_cli[name], "launches_canvas": launches_canvas[name],
                 "launches_loop": launches_loop[name], "launches_options": launches_options[name],
-                "launches_nonative": launches_nonative[name], "launches_stream": sr["launches"][name]}
+                "launches_nonative": launches_nonative[name], "launches_entry": launches_entry[name],
+                "launches_stream": sr["launches"][name]}
 
     # The headline numbers of each entry are those of the largest shape a path
     # launched it at (by pixels, B * MP, and by pairs, B * N * N): (8, 221184,
@@ -1548,7 +1814,8 @@ def main() -> int:
         | launches_of("eps_components")
         | {"launches_alone": launches_one["eps_sweep_alone"] + launches_batch["eps_sweep_alone"]
                             + launches_cli["eps_sweep_alone"] + launches_loop["eps_sweep_alone"]
-                            + launches_options["eps_sweep_alone"] + launches_nonative["eps_sweep_alone"],
+                            + launches_options["eps_sweep_alone"] + launches_nonative["eps_sweep_alone"]
+                            + launches_entry["eps_sweep_alone"],
            "max_abs_err": max(r["max_abs_err"] for r in k2),
            "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
            "bound_by": big["bound_by"], "library_ms": None,
@@ -1559,7 +1826,7 @@ def main() -> int:
         | launches_of("eps_components")
         | {"rounds": launches_one["eps_rounds"] + launches_batch["eps_rounds"] + launches_cli["eps_rounds"]
                      + launches_loop["eps_rounds"] + launches_options["eps_rounds"]
-                     + launches_nonative["eps_rounds"],
+                     + launches_nonative["eps_rounds"] + launches_entry["eps_rounds"],
            "max_abs_err": max(r["loop_max_abs_err"] for r in k2 + k2_packed),
            # One whole call (pack, loop kernel, read-back) through the packed
            # entry at the largest shape a path launched; its bound is one

@@ -19,6 +19,21 @@ import sys
 import time
 
 
+def _prewarm_async(device):
+    """Start building `_build/` (both kernels and the native runtime) on a
+    thread while the encode reads its input: the port's one first-use cost
+    (`utils/warmup.py`).  CUDA only; RHCCQ_NO_PREWARM skips it.  Returns the
+    future, or None; a failed build raises from it, and the encode that
+    loads the kernel raises as well."""
+    import os
+
+    if os.environ.get("RHCCQ_NO_PREWARM") or device is None or not str(device).startswith("cuda"):
+        return None
+    from roibasedimagecompression_torch.utils import warmup
+
+    return warmup.prewarm(device=device)
+
+
 def _cmd_encode(args):
     import numpy as np
 
@@ -26,6 +41,7 @@ def _cmd_encode(args):
     from roibasedimagecompression_torch.io import image_io
     from roibasedimagecompression_torch.models.enhance import enhance_shadows
 
+    warm = _prewarm_async(args.device)
     img = image_io.imread_rgb(args.input)
     if args.enhance_shadows:
         img = enhance_shadows(img, device=args.device)
@@ -44,6 +60,8 @@ def _cmd_encode(args):
     t0 = time.perf_counter()
     data = encode(np.asarray(img), cfg, device=args.device)
     dt = time.perf_counter() - t0
+    if warm is not None:
+        warm.result()
     with open(args.output, "wb") as f:
         f.write(data)
     pixels = img.shape[0] * img.shape[1]

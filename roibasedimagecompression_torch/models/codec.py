@@ -111,7 +111,7 @@ def _extract_and_assign(image_rgb, roi_mask, nonroi_mask, config, min_size, devi
 
 def build_segment_maps_many(images: list, regions_per_image: list,
                             config: cfg.CodecConfig, device,
-                            return_dbatch: bool = False):
+                            return_dbatch: bool = False, mesh=None):
     """Rasterize per-region SLIC segments into global (h, w) id maps for a
     batch of images.
 
@@ -123,6 +123,8 @@ def build_segment_maps_many(images: list, regions_per_image: list,
 
     With return_dbatch the result is (list, DeviceBatch or None): the batch
     on the device, whose pixels the tier-1 device pair table reads again.
+    With `mesh`, the split-score and SLIC buckets split their rows over its
+    data devices.
     """
     flat_regions = []  # (image_idx, region), nonroi first then roi per image
     for k, (roi_regions, nonroi_regions) in enumerate(regions_per_image):
@@ -153,11 +155,12 @@ def build_segment_maps_many(images: list, regions_per_image: list,
                 np.stack([np.asarray(im, np.uint8) for im in images]), reg_a, reg_b, device
             )
 
-    n_segs = SEG.optimal_segments_many(crops, masks, device, sources=sources, dbatch=dbatch)
+    n_segs = SEG.optimal_segments_many(crops, masks, device, sources=sources, dbatch=dbatch,
+                                       mesh=mesh)
     labels_list = SEG.region_segments_many(
         crops, masks, n_segs, device,
         compactness=config.slic_compactness, sigma=config.slic_sigma,
-        sources=sources, dbatch=dbatch,
+        sources=sources, dbatch=dbatch, mesh=mesh,
     )
 
     results = []
@@ -234,6 +237,7 @@ def tiers23_palette_indices(
     config: cfg.CodecConfig,
     device,
     refit_originals: np.ndarray | None = None,
+    mesh=None,
 ) -> list:
     """Tiers 2/3 + final palette, composed on the tier-1 CLUSTER table.
 
@@ -281,7 +285,7 @@ def tiers23_palette_indices(
     out2 = QB.cluster_pair_table(
         uniq2, w2, qual2, device, seed=config.seed,
         split_method=config.split_method, split_margin=config.split_margin,
-        weighted_split=config.weighted_split, weighted=config.weighted_palette,
+        weighted_split=config.weighted_split, weighted=config.weighted_palette, mesh=mesh,
     )
     with stage_timer("t23.compose"):
         c2_packed = (
@@ -295,7 +299,7 @@ def tiers23_palette_indices(
     out3 = QB.cluster_pair_table(
         uniq3, w3, [config.image_quality] * b, device, seed=config.seed,
         split_method=config.split_method, split_margin=config.split_margin,
-        weighted_split=config.weighted_split, weighted=config.weighted_palette,
+        weighted_split=config.weighted_split, weighted=config.weighted_palette, mesh=mesh,
     )
     with stage_timer("t23.compose"):
         c3_packed = (
@@ -395,14 +399,14 @@ def tiers23_palette_indices(
 
 
 def tiers23_colors_many(t1_list: list, group_map_list: list, config: cfg.CodecConfig,
-                        device) -> tuple:
+                        device, mesh=None) -> tuple:
     """Tier-2 and tier-3 colour maps of a batch of tier-1 canvases, in two
     pooled `cluster_color_maps_many` calls: tier 2 one problem per (image,
     group), then the optional black-hole fill, then tier 3 one problem per
     image.  Returns (t2_list, t3_list) of (h, w, 3) uint8 colour maps."""
     kw = dict(seed=config.seed, weighted=config.weighted_palette,
               split_method=config.split_method, split_margin=config.split_margin,
-              weighted_split=config.weighted_split)
+              weighted_split=config.weighted_split, mesh=mesh)
     colors_in, sels, quals, owner = [], [], [], []
     for k, (t1, gm) in enumerate(zip(t1_list, group_map_list)):
         for g, q2 in ((1, config.roi_tier2_quality), (2, config.nonroi_tier2_quality)):

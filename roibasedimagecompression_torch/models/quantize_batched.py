@@ -27,6 +27,8 @@ from roibasedimagecompression_torch import config as cfg
 from roibasedimagecompression_torch import native
 from roibasedimagecompression_torch.ops import cluster as CL
 from roibasedimagecompression_torch.ops.cuda import epscc as EPS
+from roibasedimagecompression_torch.parallel import shard as SHARD
+from roibasedimagecompression_torch.utils import dispatch as DISPATCH
 from roibasedimagecompression_torch.utils.timing import stage_timer
 
 _BUCKETS = (64, 256, 1024, 4096, 9999)  # eps-CC caps (>=10k goes to k-means)
@@ -202,26 +204,30 @@ def _epscc_native_on() -> bool:
     return native.available()
 
 
-def _epscc_labels_device(color_of_pair, starts, sizes, eps, cap, device) -> np.ndarray:
+def _epscc_labels_device(color_of_pair, starts, sizes, eps, cap, device, mesh=None) -> np.ndarray:
     """Run-major int32 labels of the runs through the eps-components kernel.
 
     One upload per bucket: the (b, cap) packed colours (-1 where a run has no
     point, from which the card derives validity) and the b float32 eps^2
-    values travel in one int32 buffer."""
+    values travel in one int32 buffer.  With `mesh` the rows, padded to a
+    multiple of its data axis, split over its data devices."""
     b = len(starts)
     flat_pos, flat_row, within = native.flat_run_positions(starts, sizes)
-    buf = np.full(b * cap + b, -1, np.int32)
+    bp = SHARD.pad_rows(b, mesh)
+    buf = np.full(bp * cap + bp, -1, np.int32)
     buf[flat_row * cap + within] = color_of_pair[flat_pos]
-    buf[b * cap :] = (np.asarray(eps, np.float32) ** 2).view(np.int32)
+    buf[bp * cap :] = (np.asarray(SHARD.pad_to(np.asarray(eps), bp), np.float32) ** 2).view(np.int32)
     dev_buf = torch.from_numpy(buf).to(device)
-    labels, _ = EPS.eps_components_packed(
-        dev_buf[: b * cap].view(b, cap), dev_buf[b * cap :].view(torch.float32)
-    )
+    labels, _ = DISPATCH.submit(
+        EPS.eps_components_packed,
+        SHARD.shard_rows(dev_buf[: bp * cap].view(bp, cap), mesh),
+        SHARD.shard_rows(dev_buf[bp * cap :].view(torch.float32), mesh),
+    ).result()
     return labels.cpu().numpy()[flat_row, within]
 
 
 def _epscc_assign_keys(cluster_keys, color_of_pair, starts, sizes_masked,
-                       eps, key_base, device):
+                       eps, key_base, device, mesh=None):
     """Assign eps-CC cluster keys for every non-zero run, in place.
 
     On CUDA every bucket goes through the eps-sweep kernel; on the CPU
@@ -241,7 +247,7 @@ def _epscc_assign_keys(cluster_keys, color_of_pair, starts, sizes_masked,
                 )
             if labels is None:
                 labels = _epscc_labels_device(
-                    color_of_pair, starts[ids], sizes_masked[ids], eps[ids], cap, device
+                    color_of_pair, starts[ids], sizes_masked[ids], eps[ids], cap, device, mesh
                 )
         flat_pos, flat_row, _ = native.flat_run_positions(starts[ids], sizes_masked[ids])
         cluster_keys[flat_pos] = key_base + flat_row * np.int64(cap + 1) + labels
@@ -261,6 +267,7 @@ def tier1_table(
     split_margin: float = 1.0,
     weighted_split: bool = False,
     device_pairs=None,
+    mesh=None,
 ) -> dict | None:
     """Tier-1 clustering as a pair/cluster TABLE (no canvas paint).
 
@@ -338,7 +345,7 @@ def tier1_table(
         )
         key_base = _epscc_assign_keys(
             cluster_keys, color_of_pair, starts, small_sizes, eps,
-            key_base, device,
+            key_base, device, mesh,
         )
         if len(big):
             with stage_timer("epscc.kmeans"):
@@ -367,6 +374,7 @@ def tier1_table(
             method=split_method, margin=split_margin,
             weights=pair_weights if _weighted_split_on(weighted_split) else None,
             colors_dev_pre=None if device_pairs is None else device_pairs.colors_dev,
+            mesh=mesh,
         )
 
     with stage_timer("t1.means"):
@@ -432,6 +440,7 @@ def cluster_color_maps_many(
     split_method: str = "kmeans",
     split_margin: float = 1.0,
     weighted_split: bool = False,
+    mesh=None,
 ) -> list:
     """Tier-2/3 colour-map clustering of many problems in one pooled table.
 
@@ -463,7 +472,7 @@ def cluster_color_maps_many(
     pair_colors = cluster_pair_table(
         uniq, pair_pixel_counts, quality_list, device, seed=seed,
         split_method=split_method, split_margin=split_margin,
-        weighted_split=weighted_split, weighted=weighted,
+        weighted_split=weighted_split, weighted=weighted, mesh=mesh,
     )
     off = 0
     for i, cnt in enumerate(pixel_counts):
@@ -485,6 +494,7 @@ def cluster_pair_table(
     split_margin: float = 1.0,
     weighted_split: bool = False,
     weighted: bool = True,
+    mesh=None,
 ) -> np.ndarray:
     """Cluster a pooled, deduped (problem, color) pair table.
 
@@ -528,7 +538,7 @@ def cluster_pair_table(
         )
         key_base = _epscc_assign_keys(
             cluster_keys, color_of_pair, nb_starts, small_sizes, eps,
-            key_base, device,
+            key_base, device, mesh,
         )
         if len(big):
             with stage_timer("epscc.kmeans"):
@@ -558,7 +568,7 @@ def cluster_pair_table(
         cluster_of_pair, next_cluster = _split_oversized_batched(
             colors, cluster_of_pair, pair_limits, next_cluster, seed, device,
             method=split_method, margin=split_margin,
-            weights=None if split_w is None else split_w.astype(np.float64),
+            weights=None if split_w is None else split_w.astype(np.float64), mesh=mesh,
         )
 
     w = weights.astype(np.float64) if (weighted and weights is not None) else None
@@ -664,32 +674,38 @@ def _split_oversized_mediancut(colors, cluster_of_pair, pair_max_colors, next_cl
 
 
 def _kmeans_bucket(colors_dev, order_dev, starts_b, sizes_b, ks_b, cap, k_max, seed,
-                   inits=None, weights_dev=None):
+                   inits=None, weights_dev=None, mesh=None):
     """Device k-means over runs of the ORDER permutation: row r's points are
     colors[order[starts_b[r] + j]], j < sizes_b[r], gathered on the device from
     the level's colors and order tensors.  inits: (B, k_max, 3) initial
     centres (kmeans-mc), else k-means++ or the seeded random init;
     weights_dev: float32 per-pair weights gathered alike (weighted Lloyd).
-    Returns (B, cap) labels."""
+    With `mesh` the rows, padded to a multiple of its data axis, split over
+    its data devices.  Returns (B, cap) labels."""
     dev = colors_dev.device
-    ss = torch.from_numpy(np.stack([starts_b, sizes_b]).astype(np.int64)).to(dev)
+    b = len(starts_b)
+    bp = SHARD.pad_rows(b, mesh)
+    ss = torch.from_numpy(np.stack([SHARD.pad_to(starts_b, bp),
+                                    SHARD.pad_to(sizes_b, bp)]).astype(np.int64)).to(dev)
     within = torch.arange(cap, device=dev)[None, :]
     valid = within < ss[1][:, None]
     pos = torch.where(valid, ss[0][:, None] + within, torch.zeros_like(within))
     idx = order_dev[pos]
     pts = colors_dev[idx].float() * valid[..., None]
     w = None if weights_dev is None else weights_dev[idx] * valid
-    labels = CL.kmeans_rows(
-        pts, valid, ks_b, k_max=k_max, iters=10, seed=seed, plusplus=k_max <= 256,
-        init_centers=None if inits is None else torch.from_numpy(inits).to(dev),
-        weights=w,
-    )
-    return labels.cpu().numpy()
+    init = None if inits is None else torch.from_numpy(SHARD.pad_to(inits, bp)).to(dev)
+    rows = [SHARD.shard_rows(x, mesh) for x in (pts, valid, SHARD.pad_to(np.asarray(ks_b), bp))]
+    labels = DISPATCH.submit(
+        CL.kmeans_rows, *rows, k_max=k_max, iters=10, seed=seed, plusplus=k_max <= 256,
+        init_centers=None if init is None else SHARD.shard_rows(init, mesh),
+        weights=None if w is None else SHARD.shard_rows(w, mesh),
+    ).result()
+    return labels[:b].cpu().numpy()
 
 
 def _split_oversized_batched(colors, cluster_of_pair, pair_max_colors,
                              next_cluster, seed, device, method="kmeans",
-                             margin=1.0, weights=None, colors_dev_pre=None):
+                             margin=1.0, weights=None, colors_dev_pre=None, mesh=None):
     """Split clusters above their per-segment max size, level-synchronously.
 
     Each level gathers ALL oversized clusters, buckets them by size and runs
@@ -831,7 +847,7 @@ def _split_oversized_batched(colors, cluster_of_pair, pair_max_colors,
                 labels = _kmeans_bucket(
                     colors_dev, order_dev, starts[ids], sizes[ids], ks[rows], cap,
                     k_max, seed, None if inits is None else inits[rows][:, :k_max],
-                    weights_dev if inits is None else None,
+                    weights_dev if inits is None else None, mesh,
                 )
                 flat_pos, flat_row, within = native.flat_run_positions(
                     starts[ids], sizes[ids]

@@ -23,6 +23,7 @@ import torch
 from roibasedimagecompression_torch import config as cfg
 from roibasedimagecompression_torch.ops import canny as CANNY
 from roibasedimagecompression_torch.ops import cc as CC
+from roibasedimagecompression_torch.ops import colors as COL
 from roibasedimagecompression_torch.ops import conv as CONV
 from roibasedimagecompression_torch.ops import distance as DIST
 from roibasedimagecompression_torch.ops import hist as H
@@ -106,7 +107,7 @@ def detect_meaningful_borders(binary: np.ndarray, sensitivity: float, device) ->
     the sensitivity of its maximum, closed and dilated twice (3 x 3)."""
     x = _dev(binary, device).float()
     gx, gy = CONV.sobel_cv2(x[None])
-    mag = torch.sqrt(gx[0] * gx[0] + gy[0] * gy[0])
+    mag = COL.sqrt32(gx[0] * gx[0] + gy[0] * gy[0])
     mag = mag / torch.clamp(mag.max(), min=1e-12)
     strong = mag > float(np.float32(sensitivity * 0.5))
     ones3 = np.ones((3, 3), bool)

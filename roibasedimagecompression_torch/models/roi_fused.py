@@ -28,6 +28,7 @@ from roibasedimagecompression_torch import config as cfg
 from roibasedimagecompression_torch import native
 from roibasedimagecompression_torch.ops import canny as CANNY
 from roibasedimagecompression_torch.ops import cc as CC
+from roibasedimagecompression_torch.ops import colors as COL
 from roibasedimagecompression_torch.ops import conv as CONV
 from roibasedimagecompression_torch.ops import distance as DIST
 from roibasedimagecompression_torch.ops import hist as H
@@ -164,7 +165,7 @@ def roi_masks_device(image: torch.Tensor, rc: cfg.RoiConfig, low, high):
     # Directional unification.
     x = binary.float()
     gx, gy = CONV.sobel_cv2(x[None])
-    gmag = torch.sqrt(gx[0] * gx[0] + gy[0] * gy[0])
+    gmag = COL.sqrt32(gx[0] * gx[0] + gy[0] * gy[0])
     gmag = gmag / torch.clamp(gmag.max(), min=1e-12)
     strong = gmag > _f32(rc.border_sensitivity * 0.5)
     ones3 = np.ones((3, 3), bool)

@@ -22,7 +22,10 @@ from roibasedimagecompression_torch.ops import cc as CC
 from roibasedimagecompression_torch.ops import colors as COL
 from roibasedimagecompression_torch.ops import conv as CONV
 from roibasedimagecompression_torch.ops import lbp as LBP
+from roibasedimagecompression_torch.ops import prng
 from roibasedimagecompression_torch.ops import slic as SLIC
+from roibasedimagecompression_torch.parallel import shard as SHARD
+from roibasedimagecompression_torch.utils import dispatch as DISPATCH
 from roibasedimagecompression_torch.utils.timing import stage_timer
 
 
@@ -140,57 +143,136 @@ def _pow2_bucket(n: int, minimum: int = 64) -> int:
     return -(-n // 64) * 64
 
 
+# XLA's CPU client sums the split score's float32 reductions in an order of
+# its own, read from its dumps (`XLA_FLAGS=--xla_dump_to=DIR`, the optimized
+# HLO and the LLVM IR of each fusion) and held bit for bit by the tests:
+#   - its tree reduction rewriter cuts every reduced dimension longer than 32
+#     into windows of 32 (a shorter one is one window), padded with zeros
+#     split evenly before and after; a window adds its elements one after
+#     another from zero in row-major order; the windows' grid is cut again
+#     until no reduced dimension is longer than 32;
+#   - LLVM vectorizes the last sum over that grid by its width: 8 columns
+#     and 8 rows, one lane per row; 8 columns and more rows, 4 lanes taking
+#     rows in turn; lanes combine as halves, ((0+4)+(2+6))+((1+5)+(3+7)) and
+#     (0+2)+(1+3).  Any other grid is added in row-major order.
+#   - a histogram's entropy adds its bins into 8 lanes (bin b into lane
+#     b % 8) by fused multiply-adds, combined as above.
+# Constants are XLA's folded ones (a division by a constant is a product
+# with its reciprocal; `(x / 3) * 0.7` is one product), and every product
+# that feeds one addition is fused into it, as LLVM emits them.
+_XLA_WINDOW = 32
+
+
+_C_COLOR = prng._hex32("0x1.dddddep-3")  # 0.7 / 3
+_C_GRAD = prng._hex32("0x1.99999cp-4")  # 0.3 / 3
+_C_L = prng._hex32("0x1.47ae14p-7")  # 1 / 100
+_C_THIRD = prng._hex32("-0x1.555556p-2")  # -1 / 3 (the entropy's sign folded in)
+_C_FIFTH = prng._hex32("-0x1.99999ap-3")  # -1 / 5
+_C_04 = prng._hex32("0x1.99999ap-2")
+_C_06 = prng._hex32("0x1.333334p-1")
+_INV_LN2 = prng._hex32("0x1.715476p+0")
+
+
+def _fold(v: torch.Tensor) -> torch.Tensor:
+    """Sequential float32 sum over the last dim, from zero."""
+    acc = torch.zeros(v.shape[:-1], dtype=torch.float32, device=v.device) + v[..., 0]
+    for t in range(1, v.shape[-1]):
+        acc = acc + v[..., t]
+    return acc
+
+
+def _halves(lanes: list) -> torch.Tensor:
+    while len(lanes) > 1:
+        h = len(lanes) // 2
+        lanes = [lanes[i] + lanes[i + h] for i in range(h)]
+    return lanes[0]
+
+
+def _xla_sums(x: torch.Tensor) -> torch.Tensor:
+    """(N, H, W) float32 -> (N,): each row's sum in XLA's CPU order."""
+    while x.shape[1] > _XLA_WINDOW or x.shape[2] > _XLA_WINDOW:
+        n, h, w = x.shape
+        wr, wc = min(h, _XLA_WINDOW), min(w, _XLA_WINDOW)
+        pr, pc = (-h) % wr, (-w) % wc
+        if pr or pc:
+            x = torch.nn.functional.pad(x, (pc // 2, pc - pc // 2, pr // 2, pr - pr // 2))
+        nr, nc = x.shape[1] // wr, x.shape[2] // wc
+        v = x.reshape(n, nr, wr, nc, wc).permute(0, 1, 3, 2, 4).reshape(n, nr, nc, wr * wc)
+        x = _fold(v)
+    n, nr, nc = x.shape
+    if nc == 8 and nr % 4 == 0:
+        lanes_n = 8 if nr == 8 else 4
+        rows = [_fold(x[:, r]) for r in range(nr)]  # each row's 8 in turn
+        lanes = []
+        for j in range(lanes_n):
+            acc = rows[j]
+            for r in range(j + lanes_n, nr, lanes_n):
+                acc = _fold(torch.stack([acc] + [x[:, r, c] for c in range(nc)], dim=-1))
+            lanes.append(acc)
+        return _halves(lanes)
+    return _fold(x.reshape(n, nr * nc))
+
+
+def _xla_entropy_sum(h: torch.Tensor, logh: torch.Tensor) -> torch.Tensor:
+    """(N, bins) -> (N,): sum of h * log2 over bins in XLA's lane order."""
+    lanes = []
+    for j in range(8):
+        acc = torch.zeros(h.shape[0], dtype=torch.float32, device=h.device)
+        for b in range(j, h.shape[1], 8):
+            acc = COL.fma32(h[:, b], logh[:, b], acc)
+        lanes.append(acc)
+    return _halves(lanes)
+
+
 def _split_score_batch(rgb: torch.Tensor, mask: torch.Tensor):
     """Split score of each row of a (B, H, W, 3) uint8 / (B, H, W) bool
-    bucket: (overall, color, texture, count), each (B,) float32."""
+    bucket: (overall, color, texture, count), each (B,) float32, bit for bit
+    the JAX package's jitted score on the CPU (the reduction orders above)."""
+    b = rgb.shape[0]
     maskf = mask.float()
-    count = maskf.sum(dim=(1, 2))
+    count = maskf.sum(dim=(1, 2))  # integers: exact in any order
     safe = torch.clamp(count, min=1.0)
-
-    def masked_mean(x):
-        return (x * maskf).sum(dim=(1, 2)) / safe
-
-    def masked_std(x):
-        mu = masked_mean(x)
-        return torch.sqrt(torch.clamp(masked_mean(x * x) - mu * mu, min=0.0))
 
     gray = COL.rgb_to_gray_skimage(rgb)
     lab = COL.rgb_to_lab(rgb)
-
-    l_std = masked_std(lab[..., 0])
-    a_std = masked_std(lab[..., 1])
-    b_std = masked_std(lab[..., 2])
-    color_variance = (l_std / 100.0 + a_std / 128.0 + b_std / 128.0) / 3.0
     # Reference quirk (split_score.py:48-51): grad_x and grad_y are BOTH the
     # sobel magnitude, so the "gradient magnitude" is sqrt(2)*|sobel| summed
-    # over the three LAB channels.
-    gm = torch.zeros_like(gray)
+    # over the three LAB channels (XLA computes s*s once and doubles it).
+    gm = None
     for ch in range(3):
         s = CONV.sobel_skimage(lab[..., ch])
-        gm = gm + torch.sqrt(s * s + s * s)
-    gradient_score = masked_mean(gm) / 3.0
-    color_score = torch.clamp(0.7 * color_variance + 0.3 * gradient_score, 0.0, 1.0)
+        ss = s * s
+        term = COL.sqrt32(ss + ss)
+        gm = term if gm is None else gm + term
+    grad = CONV.sobel_skimage(gray)
+    chans = [lab[..., 0], lab[..., 0] * lab[..., 0], lab[..., 1], lab[..., 1] * lab[..., 1],
+             lab[..., 2], lab[..., 2] * lab[..., 2], gm, grad, grad * grad, gray, gray * gray]
+    sums = _xla_sums((torch.stack(chans, dim=1) * maskf[:, None]).reshape(b * len(chans), *gray.shape[1:]))
+    means = (sums.reshape(b, len(chans)) / safe[:, None]).unbind(1)
+
+    def std(mu, sq):
+        return COL.sqrt32(torch.clamp(COL.fma32(-mu, mu, sq), min=0.0))
+
+    l_std, a_std, b_std = std(means[0], means[1]), std(means[2], means[3]), std(means[4], means[5])
+    color_variance = COL.fma32(l_std, _C_L, a_std * 0.0078125) + b_std * 0.0078125
+    color_score = torch.clamp(COL.fma32(means[6], _C_GRAD, color_variance * _C_COLOR), 0.0, 1.0)
+    color_in_overall = torch.clamp(COL.fma32(color_variance, _C_COLOR, means[6] * _C_GRAD), 0.0, 1.0)
+
+    def entropy(hist):
+        return _xla_entropy_sum(hist, prng.log32(hist + 1e-8) * _INV_LN2)
 
     lbp_codes = LBP.local_binary_pattern_uniform(gray).float()
     lbp_hist = LBP.masked_histogram_density(lbp_codes, mask, 0.0, 10.0, 10)
-    lbp_entropy = -(lbp_hist * torch.log2(lbp_hist + 1e-8)).sum(dim=1)
-    lbp_score = torch.clamp(lbp_entropy / 3.0, 0.0, 1.0)
-
-    grad = CONV.sobel_skimage(gray)
-    grad_mu = masked_mean(grad)
-    grad_var = masked_mean(grad * grad) - grad_mu * grad_mu
-    grad_score = torch.clamp(grad_var * 50.0, 0.0, 1.0)
-
+    lbp_score = torch.clamp(entropy(lbp_hist) * _C_THIRD, 0.0, 1.0)
+    grad_score = torch.clamp(COL.fma32(-means[7], means[7], means[8]) * 50.0, 0.0, 1.0)
     int_hist = LBP.masked_histogram_density(gray, mask, 0.0, 1.0, 32)
-    int_entropy = -(int_hist * torch.log2(int_hist + 1e-8)).sum(dim=1)
-    entropy_score = torch.clamp(int_entropy / 5.0, 0.0, 1.0)
-
-    std_score = torch.clamp(masked_std(gray) * 2.0, 0.0, 1.0)
+    entropy_score = torch.clamp(entropy(int_hist) * _C_FIFTH, 0.0, 1.0)
+    std_score = torch.clamp(std(means[9], means[10]) * 2.0, 0.0, 1.0)
 
     texture_score = torch.clamp(
-        (lbp_score + grad_score + entropy_score + std_score) / 4.0, 0.0, 1.0
+        (((lbp_score + grad_score) + entropy_score) + std_score) * 0.25, 0.0, 1.0
     )
-    overall = 0.4 * color_score + 0.6 * texture_score
+    overall = COL.fma32(color_in_overall, _C_04, texture_score * _C_06)
     return overall, color_score, texture_score, count
 
 
@@ -208,12 +290,14 @@ def _bucket_rows(rows, ph, pw, device):
 
 def split_scores_many(
     crops: list, masks: list, device, sources: list | None = None,
-    dbatch: DeviceBatch | None = None,
+    dbatch: DeviceBatch | None = None, mesh=None,
 ) -> list:
     """Split scores, one batched device call per shape bucket.
 
-    Rows whose `sources` entry is set slice their crop from `dbatch`.
-    Returns a list of (overall, color, texture); regions under 100 px score 0.
+    Rows whose `sources` entry is set slice their crop from `dbatch`.  With
+    `mesh`, a bucket's rows (padded to a multiple of its data axis) split
+    over its data devices.  Returns a list of (overall, color, texture);
+    regions under 100 px score 0.
     """
     n = len(crops)
     out: list = [None] * n
@@ -239,9 +323,13 @@ def split_scores_many(
                         c, m = np.transpose(c, (1, 0, 2)), m.T
                     rows.append((np.ascontiguousarray(c), np.ascontiguousarray(m)))
             rgb_b, mask_b = _bucket_rows(rows, ph, pw, device)
-            overall, color, texture, count = (
-                t.cpu().numpy() for t in _split_score_batch(rgb_b, mask_b)
-            )
+            bp = SHARD.pad_rows(len(rows), mesh)
+            scores = DISPATCH.submit(
+                _split_score_batch,
+                SHARD.shard_rows(SHARD.pad_to(rgb_b, bp), mesh),
+                SHARD.shard_rows(SHARD.pad_to(mask_b, bp), mesh),
+            ).result()
+            overall, color, texture, count = SHARD.collect_all(scores)
             for row, (i, _) in enumerate(items):
                 if count[row] < 100:
                     out[i] = (0.0, 0.0, 0.0)
@@ -258,10 +346,10 @@ def split_score(bbox_rgb: np.ndarray, bbox_mask: np.ndarray, device):
 
 def optimal_segments_many(
     crops: list, masks: list, device, sources: list | None = None,
-    dbatch: DeviceBatch | None = None,
+    dbatch: DeviceBatch | None = None, mesh=None,
 ) -> list:
     """Split score -> SLIC segment counts via the logistic window law."""
-    scores = split_scores_many(crops, masks, device, sources=sources, dbatch=dbatch)
+    scores = split_scores_many(crops, masks, device, sources=sources, dbatch=dbatch, mesh=mesh)
     return [
         cfg.logistic_segments(scores[i][0], cfg.segment_window(crops[i].size))
         for i in range(len(crops))
@@ -354,6 +442,7 @@ def region_segments_many(
     sigma: float = 1.0,
     sources: list | None = None,
     dbatch: DeviceBatch | None = None,
+    mesh=None,
 ) -> list:
     """Batched SLIC at <= 500 px working resolution, labels upsampled back.
 
@@ -401,6 +490,7 @@ def region_segments_many(
             sigma=sigma,
             sources=[work_src[i] for i in run_ids],
             dbatch=dbatch,
+            mesh=mesh,
         )
     for pos, i in enumerate(run_ids):
         lab = labels_small[pos]

@@ -31,6 +31,7 @@ from roibasedimagecompression_torch.ops import colors as COL
 from roibasedimagecompression_torch.ops import conv as CONV
 from roibasedimagecompression_torch.ops import hist as H
 from roibasedimagecompression_torch.ops.colors import fma32
+from roibasedimagecompression_torch.parallel import shard as SHARD
 from roibasedimagecompression_torch.utils import device as DEV
 
 _TAN22 = float(np.float32(math.tan(math.pi / 8.0)))
@@ -172,7 +173,7 @@ def adaptive_thresholds(gray_u8: torch.Tensor) -> torch.Tensor:
     otsu = otsu_threshold(gray_u8)
     lead = gray_u8.shape[:-2]
     gx, gy = CONV.sobel_cv2(gray_u8.reshape(-1, *gray_u8.shape[-2:]).float())
-    grad = torch.sqrt(gx * gx + gy * gy).reshape(*lead, -1)
+    grad = COL.sqrt32(gx * gx + gy * gy).reshape(*lead, -1)
     nz = grad > 0
     p70 = H.masked_percentile(grad, nz, 70.0)
     p90 = H.masked_percentile(grad, nz, 90.0)
@@ -180,7 +181,7 @@ def adaptive_thresholds(gray_u8: torch.Tensor) -> torch.Tensor:
     n = grad.shape[-1]
     mean_g = (grad.double().sum(dim=-1) / n).float()
     var_g = ((grad.double() - mean_g.double()[..., None]) ** 2).sum(dim=-1) / n
-    std_g = torch.sqrt(var_g.float())
+    std_g = COL.sqrt32(var_g.float())
 
     def floor(x):
         return torch.floor(x)
@@ -225,7 +226,7 @@ def edge_quality_scores(gray_u8: torch.Tensor, thresholds: torch.Tensor) -> torc
     mu = ((v * m).sum(dim=1).float()) / cnt
     mean_sq = ((v * v * m).sum(dim=1).float()) / cnt
     var = fma32(-mu, mu, mean_sq)
-    contrast = torch.sqrt(torch.clamp(var, min=0.0))
+    contrast = COL.sqrt32(torch.clamp(var, min=0.0))
     return torch.where(n_comp > 0, avg_size * contrast, torch.full_like(avg_size, float("-inf")))
 
 
@@ -358,7 +359,7 @@ def _fast_blend_batch(images: torch.Tensor):
     gray = COL.rgb_to_gray_cv2(images)
     low, high = fast_thresholds(gray)
     gx, gy = CONV.sobel_cv2(gray)
-    mag = torch.sqrt(gx * gx + gy * gy).flatten(1)
+    mag = COL.sqrt32(gx * gx + gy * gy).flatten(1)
     nz = mag > 0
     glow = H.masked_percentile(mag, nz, 10.0)
     ghigh = H.masked_percentile(mag, nz, 90.0)
@@ -370,6 +371,5 @@ def fast_thresholds_many(images: np.ndarray, device) -> tuple:
     (the mode CodecConfig.fast_edges selects): (lows (B,), highs (B,))
     float32 arrays, without the 20-candidate sweep."""
     batch = torch.from_numpy(np.ascontiguousarray(images, np.uint8)).to(device)
-    lows, highs = _fast_blend_batch(batch)
-    both = torch.stack([lows, highs]).cpu().numpy().astype(np.float32)
-    return both[0], both[1]
+    lows, highs = SHARD.collect_all(_fast_blend_batch(batch))
+    return lows.astype(np.float32), highs.astype(np.float32)

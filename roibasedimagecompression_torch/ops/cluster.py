@@ -28,6 +28,8 @@ import torch
 from roibasedimagecompression_torch.ops import prng
 from roibasedimagecompression_torch.ops.colors import fma32
 from roibasedimagecompression_torch.ops.cuda import epscc as EPS
+from roibasedimagecompression_torch.parallel import shard as SHARD
+from roibasedimagecompression_torch.utils import dispatch as DISPATCH
 
 _BIG = 3.4e38
 _MAX_D2 = 3 * 255 * 255  # the largest squared distance of two uint8 colours
@@ -261,13 +263,15 @@ def _bucket(n: int, minimum: int = 8) -> int:
 
 def kmeans_host_many(problems: list, device, *, seed: int = 42, iters: int = 25) -> list:
     """k-means labels (numpy int32) for many (points (n, 3), k) problems,
-    each padded to a power-of-two row as the JAX package pads it."""
-    out = []
+    each padded to a power-of-two row as the JAX package pads it.  Every
+    problem's call goes out first; the labels come back with one wait
+    (`parallel/shard.py collect_all`)."""
+    pending = []
     for points, k in problems:
         points = np.asarray(points, dtype=np.float32)
         n = points.shape[0]
         if k <= 1 or n <= 1:
-            out.append(np.zeros(n, dtype=np.int32))
+            pending.append((n, None))
             continue
         k = min(k, n)
         n_pad = _bucket(n)
@@ -276,12 +280,13 @@ def kmeans_host_many(problems: list, device, *, seed: int = 42, iters: int = 25)
         pts[0, :n] = points
         valid = np.zeros((1, n_pad), bool)
         valid[0, :n] = True
-        labels = kmeans_rows(
-            torch.from_numpy(pts).to(device), torch.from_numpy(valid).to(device),
-            [k], k_max=k_max, iters=iters, seed=seed, plusplus=k_max <= 256,
+        labels = DISPATCH.submit(
+            kmeans_rows, torch.from_numpy(pts).to(device), torch.from_numpy(valid).to(device),
+            np.asarray([k]), k_max=k_max, iters=iters, seed=seed, plusplus=k_max <= 256,
         )
-        out.append(labels[0, :n].cpu().numpy())
-    return out
+        pending.append((n, labels))
+    collected = iter(SHARD.collect_all([lab.result()[0] for _, lab in pending if lab is not None]))
+    return [np.zeros(n, np.int32) if lab is None else next(collected)[:n] for n, lab in pending]
 
 
 def kmeans_host(points, k: int, device, *, seed: int = 42, iters: int = 25) -> np.ndarray:

@@ -31,6 +31,15 @@ def fma32(a, b, c) -> torch.Tensor:
     return (a64 * b64 + c64).float()
 
 
+def sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """float32 square root, correctly rounded on every device, as XLA's.
+
+    PyTorch's CPU kernel (SLEEF's 0.5-ulp sqrt) misses the correctly rounded
+    result for a few inputs in a thousand; the square root of a float32 in
+    float64, rounded to float32, is the correctly rounded one."""
+    return torch.sqrt(x.double()).float()
+
+
 def div32(x: torch.Tensor, d: float) -> torch.Tensor:
     """x / d in float32, a true division on every device: PyTorch's CUDA
     kernel computes a division by a Python scalar as a product with the

@@ -2,15 +2,16 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by nvcc for
 `sm_90a` into a shared library in the package's `_build/` directory, named
-after the source's hash, then loaded with ctypes.  Nothing is built when a
-module is imported: the first launch builds, or `build_all()` builds every
-kernel at once with one nvcc process per source, started together.
+by its build key (`utils/cachekey.py`: the source, the flags and nvcc's
+release line), then loaded with ctypes.  Nothing is built when a module is
+imported: the first launch builds, or `build_all()` builds every kernel at
+once with one nvcc process per source, started together (`prebuild()` does
+so under the loader's lock, as `utils/warmup.py prewarm` calls it).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
@@ -18,6 +19,8 @@ import tempfile
 import threading
 
 import torch
+
+from roibasedimagecompression_torch.utils import cachekey
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -57,10 +60,14 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def lib_path(name: str) -> str:
+def lib_key(name: str, release: str) -> str:
+    """The build key of kernel `name` for an nvcc of `release`."""
     with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{h}.so")
+        return cachekey.build_key(f.read(), NVCC_FLAGS, release)
+
+
+def lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}-{lib_key(name, cachekey.nvcc_release())}.so")
 
 
 def build_all(names=KERNELS) -> dict:
@@ -101,6 +108,13 @@ def build_all(names=KERNELS) -> dict:
             + "\n".join(build_log[n][-3000:] for n in failed)
         )
     return {n: seconds.get(n, 0.0) for n in names}
+
+
+def prebuild() -> dict:
+    """`build_all()` under the loader's lock: a launch that needs a kernel
+    meanwhile waits for this build instead of starting its own."""
+    with _lock:
+        return build_all()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -22,6 +22,7 @@ import threading
 import torch
 
 from roibasedimagecompression_torch.ops.cuda import _build
+from roibasedimagecompression_torch.utils import flops as FLOPS
 
 INT_MAX = 2**31 - 1
 
@@ -132,7 +133,24 @@ def _components_cuda(b, n, dev, points, rows, valid, groups, eps2):
     sweeps = int(meta[3 : 4 * b : 4].max()) + 2
     with _count_lock:
         rounds += sweeps
+    if FLOPS.enabled():
+        FLOPS.add(12 * _valid_pairs(rows, valid, groups) * sweeps,
+                  b * n * (4 if rows is not None else 17) + b * n * 4)
     return lab, sweeps
+
+
+def _valid_pairs(rows, valid, groups) -> int:
+    """Pairs of valid points in one group, summed over the rows: the pairs
+    one round of the loop kernel compares (for the operation count)."""
+    if rows is not None:
+        n_valid = (rows >= 0).sum(dim=1).double()
+        return int((n_valid * n_valid).sum())
+    g = torch.where(valid.bool(), groups, torch.full_like(groups, -1)).long()
+    total = 0
+    for r in range(g.shape[0]):
+        _, counts = torch.unique(g[r][g[r] >= 0], return_counts=True)
+        total += int((counts.double() ** 2).sum())
+    return total
 
 
 def plain_round(points, lab, valid, groups, eps2, active, sweep=eps_sweep_ref):

@@ -30,6 +30,7 @@ import torch
 
 from roibasedimagecompression_torch.ops.colors import fma32
 from roibasedimagecompression_torch.ops.cuda import _build
+from roibasedimagecompression_torch.utils import flops as FLOPS
 
 FORMS = ("direct", "expanded")
 launches = 0  # kernel launches of both forms since the last reset (chip_smoke reads it)
@@ -129,6 +130,8 @@ def slic_assign(feats: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     _build.launch(lib, "slic_assign_launch", feats.device, feats.data_ptr(), centers.data_ptr(),
                   out.data_ptr(), b, mp, centers.shape[1])
     _count("direct", b, mp, centers.shape[1])
+    k = centers.shape[1]
+    FLOPS.add(17 * b * mp * k, 4 * (b * mp * 5 + b * k * 5 + b * mp))
     return out
 
 
@@ -151,4 +154,6 @@ def slic_assign_expanded(feats: torch.Tensor, centers: torch.Tensor,
     _build.launch(lib, "slic_assign_expanded_launch", feats.device, feats.data_ptr(),
                   centers.data_ptr(), valid_u8.data_ptr(), out.data_ptr(), b, mp, centers.shape[1])
     _count("expanded", b, mp, centers.shape[1])
+    k = centers.shape[1]
+    FLOPS.add(15 * b * mp * k, 4 * (b * mp * 5 + b * k * 5 + b * mp) + b * k)
     return out

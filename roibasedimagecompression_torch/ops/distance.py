@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from roibasedimagecompression_torch.ops import colors as COL
+
 _BIG = 1 << 20  # the seed coordinate of a pixel that has none yet
 _NEIGHBOURS = ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0), (1, 1))
 
@@ -53,5 +55,5 @@ def distance_transform_l2(foreground: torch.Tensor) -> torch.Tensor:
             sy = torch.where(better, cy, sy)
             sx = torch.where(better, cx, sx)
             best = torch.where(better, cand, best)
-    dist = torch.sqrt(d2(sy, sx))
+    dist = COL.sqrt32(d2(sy, sx))
     return torch.where(fg, dist, torch.zeros((), device=dev))

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from roibasedimagecompression_torch import native
+from roibasedimagecompression_torch.utils import flops as FLOPS
 from roibasedimagecompression_torch.utils.timing import stage_timer
 
 _SENTINEL = torch.iinfo(torch.int64).max
@@ -183,7 +184,7 @@ class DevicePairTable:
         ).to(rgb_flat.device)
         with stage_timer("pairs.sort"):
             (self._key_s, self._perm, new, self._pair_id,
-             self.n_pairs, self._n_valid) = _pair_sort(seg_flat, rgb_flat)
+             self.n_pairs, self._n_valid) = FLOPS.track(_pair_sort, (seg_flat, rgb_flat), {})
         self.colors_dev = None
         if self.n_pairs <= 0:
             self.uniq = np.zeros(0, np.int64)
@@ -191,8 +192,9 @@ class DevicePairTable:
             return
         cap = _pow2(self.n_pairs, minimum=4096)
         with stage_timer("pairs.compact"):
-            table, self.colors_dev = _pair_compact(
-                self._key_s, new, self._pair_id, self._n_valid, self.n_pairs, cap=cap
+            table, self.colors_dev = FLOPS.track(
+                _pair_compact, (self._key_s, new, self._pair_id, self._n_valid, self.n_pairs),
+                {"cap": cap},
             )
             self.uniq, self.counts = native.unpack_pair_table(
                 table[: self.n_pairs].cpu().numpy()
@@ -217,17 +219,17 @@ class DevicePairTable:
         dev = self._perm.device
         idx_dev = torch.from_numpy(np.ascontiguousarray(idx_of_pair, np.int32)).to(dev)
         with stage_timer("pairs.paint"):
-            out = _paint_indices(
+            out = FLOPS.track(_paint_indices, (
                 self._perm, self._pair_id, self._n_valid, idx_dev,
                 torch.uint8 if mx < 256 else torch.int32,
-            )
+            ), {})
             host = out.cpu().numpy().astype(host_dtype, copy=False)
         if refit_bins is None:
             return host
         b, hw, k_pad = refit_bins
         with stage_timer("pairs.refit"):
-            sums = _refit_sums(
-                self._perm, self._pair_id, self._key_s, self._n_valid, idx_dev,
-                k_pad=k_pad, hw=hw, b=b,
+            sums = FLOPS.track(
+                _refit_sums, (self._perm, self._pair_id, self._key_s, self._n_valid, idx_dev),
+                {"k_pad": k_pad, "hw": hw, "b": b},
             ).cpu().numpy()
         return host, sums

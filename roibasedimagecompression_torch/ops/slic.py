@@ -36,6 +36,8 @@ from roibasedimagecompression_torch.ops import cc as CC
 from roibasedimagecompression_torch.ops import colors as COL
 from roibasedimagecompression_torch.ops import conv as CONV
 from roibasedimagecompression_torch.ops.cuda import slic_assign as SA
+from roibasedimagecompression_torch.parallel import shard as SHARD
+from roibasedimagecompression_torch.utils import dispatch as DISPATCH
 from roibasedimagecompression_torch.utils.timing import stage_timer
 
 _TILE = 2048  # pixel padding grid of the JAX Pallas mode
@@ -296,6 +298,7 @@ def slic_many(
     min_size_factor: float = 0.5,
     sources: list | None = None,
     dbatch=None,
+    mesh=None,
 ) -> list:
     """Batched masked SLIC over many regions.
 
@@ -306,8 +309,9 @@ def slic_many(
     region-id raster's mask: where two regions of one kind overlap (a small
     ROI region demoted into the non-ROI buffer zone) the raster holds the
     later one, as in the JAX package; the centres and the connectivity pass
-    use `masks` on every path.  Returns (h_i, w_i) int32 label maps (0
-    outside mask, 1..n inside).
+    use `masks` on every path.  With `mesh`, a bucket's rows (padded to a
+    multiple of its data axis) split over its data devices.  Returns (h_i,
+    w_i) int32 label maps (0 outside mask, 1..n inside).
     """
     n = len(images)
     out: list = [None] * n
@@ -361,17 +365,17 @@ def slic_many(
             core_masks = torch.from_numpy(masks_b).to(device)
             for row, h0, w0, raster in raster_masks:
                 core_masks[row, :h0, :w0] = raster
-            assign_b = _slic_core_batch(
-                rgb_b,
-                core_masks,
-                torch.from_numpy(cyx).to(device),
-                torch.from_numpy(cval).to(device),
-                torch.from_numpy(steps).to(device),
+            bp = SHARD.pad_rows(bsz, mesh)
+            rows = [SHARD.shard_rows(SHARD.pad_to(x, bp), mesh) for x in (
+                rgb_b, core_masks, torch.from_numpy(cyx).to(device),
+                torch.from_numpy(cval).to(device), torch.from_numpy(steps).to(device))]
+            assign_b = DISPATCH.submit(
+                _slic_core_batch, *rows,
                 iters=iters, compactness=float(compactness), sigma=float(sigma),
-            ).cpu().numpy()
+            ).result()[:bsz].cpu().numpy()
         with stage_timer("slic.conn"):
             labels_rows = _enforce_connectivity_bucket(
-                assign_b, masks_b, ids, metas, min_size_factor, device
+                assign_b, masks_b, ids, metas, min_size_factor, device, mesh
             )
         for row, i in enumerate(ids):
             mask, centers_yx, _, _, transposed = metas[i]
@@ -385,7 +389,7 @@ def slic_many(
     return out
 
 
-def _enforce_connectivity_bucket(assign_b, masks_b, ids, metas, min_size_factor, device):
+def _enforce_connectivity_bucket(assign_b, masks_b, ids, metas, min_size_factor, device, mesh=None):
     """Split segments into connected fragments and absorb small ones into
     neighbors (skimage _enforce_label_connectivity_cython behavior).
 
@@ -395,7 +399,8 @@ def _enforce_connectivity_bucket(assign_b, masks_b, ids, metas, min_size_factor,
     the JAX package too): 4-connected fragments of equal labels by min-label
     propagation, compacted by np.unique; fragments of at least min_size
     pixels are kept (the largest when none is); every other pixel takes the
-    label of its nearest kept pixel by jump flooding."""
+    label of its nearest kept pixel by jump flooding (with `mesh`, both
+    device steps split the rows over its data devices)."""
     if native.available():
         def one(row):
             _, centers_yx, _, area, _ = metas[ids[row]]
@@ -404,11 +409,16 @@ def _enforce_connectivity_bucket(assign_b, masks_b, ids, metas, min_size_factor,
 
         with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
             return list(pool.map(one, range(len(ids))))
+    bsz = len(ids)
+    bp = SHARD.pad_rows(bsz, mesh)
+
+    def rows(a: np.ndarray):
+        return SHARD.shard_rows(SHARD.pad_to(torch.from_numpy(a).to(device), bp), mesh)
+
     with stage_timer("slic.frag"):
-        masks_d = torch.from_numpy(masks_b).to(device)
-        frag_b = CC.propagate_equal_labels(
-            torch.from_numpy(assign_b.astype(np.int32)).to(device), masks_d, connectivity=4
-        ).cpu().numpy()
+        frag_b = DISPATCH.submit(
+            CC.propagate_equal_labels, rows(assign_b.astype(np.int32)), rows(masks_b), connectivity=4
+        ).result()[:bsz].cpu().numpy()
     compact_b = np.zeros(assign_b.shape, np.int32)
     keep_b = np.zeros(assign_b.shape, bool)
     for row, i in enumerate(ids):
@@ -425,7 +435,7 @@ def _enforce_connectivity_bucket(assign_b, masks_b, ids, metas, min_size_factor,
         compact_b[row][fg] = inv
         keep_b[row][fg] = keep_frag[inv]
     with stage_timer("slic.adopt"):
-        adopted = CC.adopt_labels(
-            torch.from_numpy(compact_b).to(device), torch.from_numpy(keep_b).to(device), masks_d
-        ).cpu().numpy()
+        adopted = DISPATCH.submit(
+            CC.adopt_labels, rows(compact_b), rows(keep_b), rows(masks_b)
+        ).result()[:bsz].cpu().numpy()
     return [adopted[row] for row in range(len(ids))]

@@ -19,7 +19,10 @@ _PAD_VALUE = 2**31 - 1
 
 def unique_packed_padded(packed: torch.Tensor, capacity: int):
     """Unique values of a flat int32 tensor, padded to `capacity`: (values
-    (capacity,) sorted, slots >= count hold 2^31 - 1; count; inverse)."""
+    (capacity,) sorted, slots >= count hold 2^31 - 1; count; inverse).  With
+    more than `capacity` unique values the first `capacity` are kept, and
+    `count` and `inverse` still count them all, as the JAX function's
+    dropping scatter does."""
     n = packed.shape[0]
     sorted_vals, order = torch.sort(packed, stable=True)
     is_first = torch.ones(n, dtype=torch.bool, device=packed.device)
@@ -27,7 +30,11 @@ def unique_packed_padded(packed: torch.Tensor, capacity: int):
     rank = torch.cumsum(is_first.to(torch.int64), 0) - 1
     count = int(rank[-1]) + 1 if n else 0
     values = torch.full((capacity,), _PAD_VALUE, dtype=packed.dtype, device=packed.device)
-    values[rank] = sorted_vals
+    if count > capacity:
+        fits = rank < capacity
+        values[rank[fits]] = sorted_vals[fits]
+    else:
+        values[rank] = sorted_vals
     inverse = torch.empty(n, dtype=torch.int64, device=packed.device)
     inverse[order] = rank
     return values, count, inverse

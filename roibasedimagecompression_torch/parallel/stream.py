@@ -12,11 +12,19 @@ The counterpart of the JAX package's `parallel/stream.py`.  Three levers:
   3. Host-side container packing (DEFLATE releases the interpreter lock) runs
      in a thread pool, and `encode_stream` runs whole batches on worker
      threads, each sending its device work to a CUDA stream of its own.
+
+With `mesh` (`parallel/mesh.py make_mesh`), the data-parallel deployment
+path: every bucketed device stage (split score, SLIC, the eps-CC rows, the
+k-means splits; and without the runtime the ROI masks, image by image)
+splits its rows over the mesh's data devices, each shard on its owner, and
+gathers on the mesh's first device, which then stands in for `device`.  The
+bytes equal the one-device encode's.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import os
 import threading
 
@@ -32,6 +40,7 @@ from roibasedimagecompression_torch.models import refine as REFINE
 from roibasedimagecompression_torch.models import roi_fused as RF
 from roibasedimagecompression_torch.ops import canny as CANNY
 from roibasedimagecompression_torch.ops import pairs as PAIRS
+from roibasedimagecompression_torch.parallel import shard as SHARD
 from roibasedimagecompression_torch.utils import device as DEV
 from roibasedimagecompression_torch.utils.timing import stage_timer
 
@@ -51,15 +60,23 @@ def _io_pool() -> concurrent.futures.ThreadPoolExecutor:
         return _IO_POOL
 
 
+def _mesh_device(device, mesh) -> torch.device:
+    """The device the encode runs on: a mesh's first device overrides
+    `device`."""
+    return mesh.first if mesh is not None else DEV.resolve(device)
+
+
 def encode_many(
-    images: list, config: cfg.CodecConfig | None = None, device=None,
+    images: list, config: cfg.CodecConfig | None = None, device=None, mesh=None,
     _start_gate: threading.Event | None = None,
     _frontend_done: threading.Event | None = None,
 ) -> list:
     """Encode a list of same-shape (h, w, 3) uint8 images -> list of bytes.
 
     device=None runs on CUDA (and raises without a card); pass "cpu" for the
-    CPU.  Each image's bytes equal `encode(image, config)`.
+    CPU.  With `mesh`, the bucketed device stages split their rows over the
+    mesh's data devices (see the module docstring).  Each image's bytes
+    equal `encode(image, config)`.
 
     _start_gate/_frontend_done stagger concurrent pipelines (encode_stream):
     the batch waits on _start_gate before doing any work and sets
@@ -70,7 +87,7 @@ def encode_many(
     try:
         if _start_gate is not None:
             _start_gate.wait()
-        return _encode_many_inner(images, config, DEV.resolve(device), _frontend_done)
+        return _encode_many_inner(images, config, _mesh_device(device, mesh), _frontend_done, mesh)
     finally:
         # Always unblock the successor, even on failure mid-frontend.
         if _frontend_done is not None:
@@ -78,7 +95,7 @@ def encode_many(
 
 
 def _segment_stack(batch: np.ndarray, config: cfg.CodecConfig, device,
-                   frontend_done: threading.Event | None = None):
+                   frontend_done: threading.Event | None = None, mesh=None):
     """Frontend and segment stage of a (b, h, w, 3) uint8 batch: thresholds,
     ROI masks, region extraction, then split score and SLIC with all regions
     of all images pooled into the same buckets.
@@ -101,8 +118,15 @@ def _segment_stack(batch: np.ndarray, config: cfg.CodecConfig, device,
             else:
                 lows, highs = CANNY.select_thresholds_many(batch, device)
         with stage_timer("s.roi_masks"):
+            # Without the runtime the masks are a device graph, and a mesh
+            # runs image k on the owner of its data shard.
+            owners = [device] * b
+            if mesh is not None:
+                per = SHARD.pad_rows(b, mesh) // SHARD.data_axis_size(mesh)
+                owners = [mesh.data_devices[k // per] for k in range(b)]
+
             def one_mask(k):
-                return RF.roi_masks_fast(batch[k], config, lows[k], highs[k], device)
+                return RF.roi_masks_fast(batch[k], config, lows[k], highs[k], owners[k])
 
             # The mask chain is native host work that releases the
             # interpreter lock; on one core a pool only adds switches.
@@ -129,7 +153,7 @@ def _segment_stack(batch: np.ndarray, config: cfg.CodecConfig, device,
     with stage_timer("s.segment"):
         seg_results, dbatch = CODEC.build_segment_maps_many(
             [batch[k] for k in range(b)], regions_per_image, config, device,
-            return_dbatch=True,
+            return_dbatch=True, mesh=mesh,
         )
     seg_maps = []
     qualities = [np.zeros(1)]
@@ -147,7 +171,7 @@ def _segment_stack(batch: np.ndarray, config: cfg.CodecConfig, device,
 
 
 def _encode_many_inner(images: list, config: cfg.CodecConfig, device,
-                       frontend_done: threading.Event | None) -> list:
+                       frontend_done: threading.Event | None, mesh=None) -> list:
     if not images:
         return []
     shape = images[0].shape
@@ -158,7 +182,7 @@ def _encode_many_inner(images: list, config: cfg.CodecConfig, device,
     b, h, w, _ = batch.shape
     tall_img = batch.reshape(b * h, w, 3)
     tall_seg, seg_quality, seg_group, image_of_seg, dbatch = _segment_stack(
-        batch, config, device, frontend_done
+        batch, config, device, frontend_done, mesh
     )
 
     # 3. One tier-1 pass across every segment of every image, as a cluster
@@ -166,12 +190,12 @@ def _encode_many_inner(images: list, config: cfg.CodecConfig, device,
     #    the pair table is a sort there; RHCCQ_DEVICE_PAIRS=0 switches to the
     #    host radix pack and the host index paint (the same bytes).
     # The canvas tiers path paints pixels on the host, so it skips the device
-    # pair table, as the JAX package does.
+    # pair table, as the JAX package does, and so does a mesh run.
     canvas = CODEC.canvas_tiers(config)
     device_pairs = None
     # Without the native runtime the table is the host's, as in the JAX
     # package (its repair runs on the runtime).
-    if (dbatch is not None and not canvas and native.available()
+    if (dbatch is not None and not canvas and mesh is None and native.available()
             and os.environ.get("RHCCQ_DEVICE_PAIRS", "1") != "0"):
         with stage_timer("t1.pairs_dev"):
             device_pairs = PAIRS.DevicePairTable(tall_seg, images_dev=dbatch.img)
@@ -180,11 +204,11 @@ def _encode_many_inner(images: list, config: cfg.CodecConfig, device,
             tall_img, tall_seg, seg_quality, device, seed=config.seed,
             weighted=config.weighted_palette, split_method=config.split_method,
             split_margin=config.split_margin, weighted_split=config.weighted_split,
-            device_pairs=device_pairs,
+            device_pairs=device_pairs, mesh=mesh,
         )
 
     if canvas:
-        return _finish_canvas_path(table, tall_seg, seg_group, batch, config, device)
+        return _finish_canvas_path(table, tall_seg, seg_group, batch, config, device, mesh)
 
     # 4. Tiers 2/3 and the final palettes composed on the cluster table;
     #    pixels are touched once more, for the final index paint.
@@ -195,7 +219,7 @@ def _encode_many_inner(images: list, config: cfg.CodecConfig, device,
             # refit_originals: the zero-rate palette refit happens inside.
             pal_idx = CODEC.tiers23_palette_indices(
                 table, seg_group, image_of_seg, b, (h, w), config, device,
-                refit_originals=batch,
+                refit_originals=batch, mesh=mesh,
             )
 
     # 5. Container packing in the shared thread pool.
@@ -207,7 +231,7 @@ def _encode_many_inner(images: list, config: cfg.CodecConfig, device,
         return list(_io_pool().map(finish, range(b)))
 
 
-def _finish_canvas_path(table, tall_seg, seg_group, batch, config, device) -> list:
+def _finish_canvas_path(table, tall_seg, seg_group, batch, config, device, mesh=None) -> list:
     """Tiers 2/3 on canvases (fill_black_holes edits the tier-2 canvas
     before tier 3; RHCCQ_CANVAS_TIERS=1 asks for the path), then palettes,
     refit and the containers."""
@@ -218,7 +242,7 @@ def _finish_canvas_path(table, tall_seg, seg_group, batch, config, device) -> li
     t1_list = [t1_tall[k * h : (k + 1) * h] for k in range(b)]
     group_maps = [seg_group[tall_seg[k * h : (k + 1) * h]] for k in range(b)]
     with stage_timer("s.tier23"):
-        _, t3_list = CODEC.tiers23_colors_many(t1_list, group_maps, config, device)
+        _, t3_list = CODEC.tiers23_colors_many(t1_list, group_maps, config, device, mesh=mesh)
 
     def finish(k: int) -> bytes:
         palette, indices = CODEC.canvas_palette_indices(t3_list[k], t1_list[k], config, device)
@@ -230,7 +254,7 @@ def _finish_canvas_path(table, tall_seg, seg_group, batch, config, device) -> li
 
 
 def encode_stream(batches: list, config: cfg.CodecConfig | None = None,
-                  workers: int = 2, device=None) -> list:
+                  workers: int = 2, device=None, mesh=None) -> list:
     """Encode a stream of same-shape batches on `workers` threads.
 
     Several encode_many pipelines run on separate threads: while one waits on
@@ -239,7 +263,9 @@ def encode_stream(batches: list, config: cfg.CodecConfig | None = None,
     batches on a stream of its own, so kernels of two batches may overlap on
     the card.  Starts are staggered: batch k begins only when batch k-1 has
     finished its host-serial frontend, so the pipelines stay phase-shifted.
-    Each batch's bytes equal a sequential encode_many.
+    Each batch's bytes equal a sequential encode_many.  With `mesh`, each
+    batch is `encode_many(..., mesh=mesh)`, and a worker owns a stream on
+    every CUDA device of the mesh.
 
     Measured on an NVIDIA H100 80GB HBM3 at 700 W (`chip_smoke.py`, 3 batches
     of 8 images of 768x512), workers=2 is slower than sequential encode_many
@@ -251,27 +277,32 @@ def encode_stream(batches: list, config: cfg.CodecConfig | None = None,
     Returns a list of per-batch result lists, in input order.
     """
     config = config or cfg.CodecConfig()
-    dev = DEV.resolve(device)
+    dev = _mesh_device(device, mesh)
     if workers <= 1 or len(batches) <= 1:
-        return [encode_many(b, config, dev) for b in batches]
+        return [encode_many(b, config, dev, mesh=mesh) for b in batches]
     gates = [threading.Event() for _ in range(len(batches) + 1)]
     gates[0].set()
-    local = threading.local()  # each worker thread's CUDA stream
+    local = threading.local()  # each worker thread's CUDA streams, one per device
+    cuda_devs = sorted({d for d in (mesh.devices.reshape(-1) if mesh is not None else [dev])
+                        if d.type == "cuda"}, key=str)
 
     def run(k: int) -> list:
-        if dev.type != "cuda":
+        if not cuda_devs:
             return encode_many(
-                batches[k], config, dev, _start_gate=gates[k], _frontend_done=gates[k + 1],
+                batches[k], config, dev, mesh=mesh, _start_gate=gates[k], _frontend_done=gates[k + 1],
             )
-        if not hasattr(local, "stream"):
-            local.stream = torch.cuda.Stream(dev)
+        if not hasattr(local, "streams"):
+            local.streams = [torch.cuda.Stream(d) for d in cuda_devs]
         try:
-            with torch.cuda.stream(local.stream):
+            with contextlib.ExitStack() as stack:
+                for s in local.streams:
+                    stack.enter_context(torch.cuda.stream(s))
                 return encode_many(
-                    batches[k], config, dev, _start_gate=gates[k], _frontend_done=gates[k + 1],
+                    batches[k], config, dev, mesh=mesh, _start_gate=gates[k], _frontend_done=gates[k + 1],
                 )
         finally:
-            local.stream.synchronize()
+            for s in local.streams:
+                s.synchronize()
 
     with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as pool:
         return list(pool.map(run, range(len(batches))))

@@ -200,11 +200,11 @@ def _loop_regions(seed):
 @pytest.mark.parametrize("seed", [100, 7, 12])
 def test_optimal_segments_match_jax_one_region(seed):
     """Segment counts of the one-image call at B = 1 (the loop's), which the
-    batched tests never use: equal counts, scores within 1e-5."""
+    batched tests never use: equal counts, and scores bit for bit."""
     for crop, mask in _loop_regions(seed):
         assert TSEG.optimal_segments(crop, mask, CPU) == JSEG.optimal_segments(crop, mask)
-        np.testing.assert_allclose(TSEG.split_score(crop, mask, CPU),
-                                   JSEG.split_score(crop, mask), rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(TSEG.split_score(crop, mask, CPU),
+                                      JSEG.split_score(crop, mask))
         n = JSEG.optimal_segments(crop, mask)
         np.testing.assert_array_equal(TSEG.region_segments(crop, mask, n, CPU),
                                       JSEG.region_segments(crop, mask, n))

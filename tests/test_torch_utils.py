@@ -1,0 +1,199 @@
+"""PyTorch port, the utilities of the entry surface: call routing
+(dispatch), build keys (cachekey), warm-up (warmup), tracing (profiling)
+and operation accounting (flops), with the cases of the JAX package's own
+tests where they carry over ("warm" meaning: run inline)."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from roibasedimagecompression_torch import config as tcfg
+from roibasedimagecompression_torch.models import pipeline_jit as TPJ
+from roibasedimagecompression_torch.parallel import stream as TSTREAM
+from roibasedimagecompression_torch.utils import cachekey, dispatch, flops, profiling, warmup
+from roibasedimagecompression_torch.utils.synthetic import synthetic_image
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Runs each test's torch work on one thread and restores the count after:
+    the suite runs several worker processes on the host's cores, and a torch
+    thread pool per worker only adds contention."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# ------------------------------------------------------------------ dispatch
+def test_calls_dispatch_inline():
+    calls = []
+
+    def fn(x):
+        calls.append(x.shape)
+        return x + 1
+
+    a = np.zeros((4, 4), np.float32)
+    f1 = dispatch.submit(fn, a)
+    f2 = dispatch.submit(fn, a)
+    for f in (f1, f2):
+        assert isinstance(f, dispatch._Done)
+        assert f.done() and f.exception() is None
+        assert np.array_equal(f.result(), a + 1)
+    assert len(calls) == 2
+
+
+def test_distinct_shapes_are_distinct_keys():
+    def fn(x):
+        return x
+
+    k1 = dispatch._call_key(fn, (np.zeros((2, 2), np.float32),), {})
+    k2 = dispatch._call_key(fn, (np.zeros((8, 2), np.float32),), {})
+    k3 = dispatch._call_key(fn, (torch.zeros((8, 2)),), {"chunk": 4})
+    assert len({k1, k2, k3}) == 3
+    assert dispatch.submit(fn, np.zeros((8, 2), np.float32)).result().shape == (8, 2)
+
+
+def test_container_and_callable_args_have_no_key():
+    def runner(fn, args, kwargs):
+        return fn(*args, **kwargs)
+
+    assert dispatch.submit(runner, lambda x: x * 2, [3], {}).result() == 6
+    assert dispatch.submit(runner, lambda x: x * 5, [3], {}).result() == 15
+    assert dispatch._call_key(runner, (lambda x: x, [3], {}), {}) is None
+
+
+def test_failed_call_is_kept_in_its_future():
+    boom = []
+
+    def fn(x):
+        if not boom:
+            boom.append(1)
+            raise RuntimeError("first call fails")
+        return x
+
+    a = np.zeros(3, np.float32)
+    f1 = dispatch.submit(fn, a)
+    assert isinstance(f1.exception(), RuntimeError)
+    with pytest.raises(RuntimeError):
+        f1.result()
+    assert dispatch.submit(fn, a).result() is a
+
+
+def test_resolve_mixes_futures_and_values():
+    def fn():
+        return 41
+
+    items = [dispatch.submit(fn), 1, dispatch.submit(fn)]
+    assert dispatch.resolve(items) == [41, 1, 41]
+
+
+# ------------------------------------------------------------------ cachekey
+_NVCC = (
+    "nvcc: NVIDIA (R) Cuda compiler driver\n"
+    "Copyright (c) 2005-2024 NVIDIA Corporation\n"
+    "Built on Thu_Mar_28_02:18:24_PDT_2024\n"
+    "Cuda compilation tools, release 12.4, V12.4.131\n"
+    "Build cuda_12.4.r12.4/compiler.34097967_0"
+)
+
+
+def test_stable_compiler_string_drops_build_stamp_keeps_release():
+    s = cachekey.stable_compiler_string(_NVCC)
+    assert "Built on" not in s and "Thu_Mar_28" not in s
+    assert "release 12.4" in s
+    assert cachekey.release_line(_NVCC) == "release 12.4"
+    with pytest.raises(ValueError):
+        cachekey.release_line("no version here")
+
+
+def test_build_key_differs_on_release_bump():
+    src, flags = b"__global__ void k() {}", ["-O3", "-gencode", "arch=compute_90a,code=sm_90a"]
+    bumped = _NVCC.replace("release 12.4, V12.4.131", "release 12.6, V12.6.20")
+    assert cachekey.build_key(src, flags, cachekey.release_line(_NVCC)) != cachekey.build_key(
+        src, flags, cachekey.release_line(bumped))
+    assert cachekey.build_key(src, flags, "release 12.4") != cachekey.build_key(src + b" ", flags, "release 12.4")
+    assert cachekey.build_key(src, flags, "release 12.4") != cachekey.build_key(src, flags[:1], "release 12.4")
+
+
+def test_build_key_same_across_builds_and_paths():
+    redeployed = _NVCC.replace("Thu_Mar_28_02:18:24_PDT_2024", "Tue_Jun_11_00:01:02_PDT_2024")
+    key = cachekey.build_key(b"x", ["-O3"], cachekey.release_line(_NVCC))
+    assert key == cachekey.build_key(b"x", ["-O3"], cachekey.release_line(redeployed))
+    assert len(key) == 12 and int(key, 16) >= 0
+
+
+def test_identity_report_shape():
+    from roibasedimagecompression_torch.ops.cuda import _build
+
+    r = cachekey.identity_report()
+    assert {"torch", "cuda", "nvcc_release", "device_name", "capability", "build_keys",
+            "native_lib"} <= set(r)
+    assert set(r["build_keys"]) == set(_build.KERNELS)
+    assert r["torch"] == torch.__version__
+
+
+# -------------------------------------------------------------------- warmup
+def test_warmup_manifest_roundtrip(tmp_path, monkeypatch):
+    """A recorded small CPU encode gives a replayable manifest: every entry
+    resolves, and prewarm replays all of them with zero inputs."""
+    monkeypatch.setattr(warmup, "_entries", [])
+    monkeypatch.setattr(warmup, "_seen", set())
+    monkeypatch.setattr(warmup, "_recording", True)
+    img = synthetic_image(30, 96, 96)
+    TSTREAM.encode_many([img, img[::-1].copy()], tcfg.CodecConfig(), device="cpu")
+    path = str(tmp_path / "manifest.json")
+    n = warmup.save(path)
+    assert n >= 2  # split score and SLIC buckets at least
+    entries = json.load(open(path))
+    names = {e["fn"] for e in entries}
+    assert any("_split_score_batch" in x for x in names) and any("_slic_core_batch" in x for x in names)
+    for e in entries:
+        assert callable(warmup._resolve(e["fn"]))
+    assert warmup.prewarm(path, block=True, device="cpu") == n
+    assert warmup.prewarm(block=True, device="cpu") == 0
+
+
+def test_source_fingerprint_and_freshness():
+    fp = warmup.source_fingerprint()
+    assert len(fp) == 16 and fp == warmup.source_fingerprint()
+    lines = []
+    fresh = warmup.check_pack_freshness(log=lines.append)
+    assert isinstance(fresh, bool)
+    if not fresh:
+        assert lines
+
+
+# ----------------------------------------------------------------- profiling
+def test_device_trace_writes_a_trace(tmp_path):
+    with profiling.device_trace(str(tmp_path)) as prof:
+        with profiling.annotate("work"):
+            torch.ones(64, 64).matmul(torch.ones(64, 64))
+    assert os.path.exists(prof.trace_path)
+    trace = json.load(open(prof.trace_path))
+    assert any(ev.get("name") == "work" for ev in trace["traceEvents"])
+
+
+# --------------------------------------------------------------------- flops
+def test_flops_count_analysis_step():
+    was = flops.enabled()
+    flops.enable()
+    flops.reset()
+    try:
+        img = synthetic_image(9, 64, 64)
+        flops.track(TPJ.analysis_step, (img,), {"n_centers_side": 4, "palette_cap": 512, "device": "cpu"})
+        f, b = flops.totals()
+        assert f > 0 and b > 0
+        before = flops.totals()[0]
+        flops.track(torch.matmul, (torch.ones(8, 16), torch.ones(16, 4)), {})
+        assert flops.totals()[0] - before == 2 * 8 * 16 * 4
+        flops.disable()
+        flops.track(torch.matmul, (torch.ones(8, 16), torch.ones(16, 4)), {})
+        assert flops.totals()[0] - before == 2 * 8 * 16 * 4
+    finally:
+        flops.reset()
+        (flops.enable if was else flops.disable)()
+    assert flops.H100_PEAK_F32 == 67e12
