@@ -75,11 +75,13 @@ Phases, in order; any failed check exits non-zero:
      `encode` at region_fusion=True and at weighted_split=True and the loop
      at both, and `encode_debug` (every intermediate), each against the CPU,
      byte for byte; then, in a child process (`--nonative-child`) under
-     RHCCQ_NATIVE=0 (read once per process): `encode` of that image,
-     `encode_many` of the batch's first two and the loop, each against the
-     same call on the CPU under the switch, byte for byte, with counts,
-     stage seconds and connected-components passes read around each, and
-     the propagation's card time per pass;
+     RHCCQ_NATIVE=0 (read once per process): `encode` of that image and
+     the loop, each against the same call on the CPU under the switch, byte
+     for byte, and `encode_many` of the batch's first two (held by phase 15
+     against the JAX package's digests), with counts,
+     stage seconds and connected-components passes read around each, then
+     `encode` of seed 102 for phase 15 (by digest only), and the
+     propagation's card time per pass;
  13. side modules, on the third image of phase 7's batch (seed 102; the
      first two have no ROI pixels at CodecConfig()) and its ROI mask, each on the
      card against the same call on the CPU: Zhang-Suen thinning, the five
@@ -101,12 +103,26 @@ Phases, in order; any failed check exits non-zero:
      `encode_many` of 8 (executed operations, wall, share of the card's
      float32 peak); `identity_report()` and the build pack's freshness
      before and after `prewarm`;
- 15. cover: every (form, B, MP, K) and (B, N) that phases 5 and 7-14
+ 15. parity with the JAX package: the payload digests (sha256 of the
+     unpacked palette, index matrix and shape) of the 768x512 encodes of
+     phases 5, 7 and 9-12 against the JAX package's, read from
+     tests/data/jax_parity_768x512.json (written by
+     scripts/port_parity_fullsize.py; this script imports no JAX): equal,
+     or, where the earlier phase took its allowance against the CPU, PSNR
+     within 0.05 dB of the file's; then new card encodes of seed 102 (the
+     first with ROI pixels) at the rows no phase runs on it (RHCCQ_SLIC_PALLAS=1,
+     the loop with and without its ROI frontend, region fusion, the weighted
+     split and both, the weighted k-means split, the CLI's mediancut,
+     kmeans-mc and --enhance-shadows, and phase 12's child without the
+     runtime), counts read around each, each held by its digest; and the
+     PSNR and SSIM of the batch's 8 decodes on the card against the file's;
+ 16. cover: every (form, B, MP, K) and (B, N) that phases 5 and 7-15
      launched and phases 3 and 4 did not check is checked against the
      plain version now, so no path runs a kernel at a shape the run has not
      held;
- 16. one JSON line of kernel measurements, then the card line, then the
-     final {"ok": true, ...} line.
+ 17. the parity line {"parity": {"rows": n, "equal": e, "open": [...]}}, one
+     JSON line of kernel measurements, then the card line, then the final
+     {"ok": true, ...} line.
 
 Without CUDA, or without the package beside this file, it exits non-zero
 and prints no result.
@@ -802,7 +818,7 @@ def run_with_deadline(fn, seconds: float, what: str):
     return box["value"]
 
 
-def run_stream(device, batches, first_batch_datas, deadline=300.0, profile=True):
+def run_stream(device, batches, first_batch_datas, deadline=300.0):
     """`encode_stream` with two workers against sequential `encode_many`."""
     from roibasedimagecompression_torch.parallel import stream as STREAM
 
@@ -818,14 +834,9 @@ def run_stream(device, batches, first_batch_datas, deadline=300.0, profile=True)
     launches, shapes = read_counts()
     check(got == seq, "encode_stream(workers=2) differs from sequential encode_many")
     n = sum(len(bt) for bt in batches)
-    idle = None
-    if profile and device.type == "cuda":
-        idle = run_with_deadline(
-            lambda: device_idle_share(lambda: STREAM.encode_stream(batches, None, 2, device)),
-            deadline, "encode_stream(workers=2) under the profiler")
     return {"seconds": seconds, "images_per_second": n / seconds, "sequential_seconds": seq_seconds,
             "sequential_images_per_second": n / seq_seconds, "launches": launches, "shapes": shapes,
-            "idle": idle, "datas": seq}
+            "datas": seq}
 
 
 CLI_OPTIONS = (("mediancut", ["--split-method", "mediancut"]),
@@ -910,7 +921,7 @@ def run_cli(device, images, datas, compare_cpu=True):
             rec = {"seconds": secs, "line": line.strip(), "launches": launches, "shapes": shapes,
                    "stages": {k: v["seconds"] for k, v in stages.items()}}
             with open(target, "rb") as f:
-                data = f.read()
+                data = rec["data"] = f.read()
             img = images[1]
             if "--enhance-shadows" in extra:
                 img = enhance_shadows(img, device=device)
@@ -999,8 +1010,8 @@ def run_canvas(device, images, datas, batch, batch_datas, n_cpu=1):
     fill = cfg.CodecConfig(fill_black_holes=10)
     os.environ["RHCCQ_CANVAS_TIERS"] = "1"
     try:
-        got = counted("encode, RHCCQ_CANVAS_TIERS=1", lambda: [rtt.encode(im, device=device) for im in images])
-        check(got == datas, "encode under RHCCQ_CANVAS_TIERS=1 differs from the composed path")
+        got_one = counted("encode, RHCCQ_CANVAS_TIERS=1", lambda: [rtt.encode(im, device=device) for im in images])
+        check(got_one == datas, "encode under RHCCQ_CANVAS_TIERS=1 differs from the composed path")
         got = counted("encode_many, RHCCQ_CANVAS_TIERS=1", lambda: STREAM.encode_many(batch, None, device))
         check(got == batch_datas, "encode_many under RHCCQ_CANVAS_TIERS=1 differs from the composed path")
     finally:
@@ -1026,7 +1037,9 @@ def run_canvas(device, images, datas, batch, batch_datas, n_cpu=1):
             runs["encode, RHCCQ_SLIC_PALLAS=1"]["bytes_equal_cpu"] = r[0]["bytes_equal_cpu"]
     finally:
         del os.environ["RHCCQ_SLIC_PALLAS"]
-    return {"runs": runs, "results": results}
+    return {"runs": runs, "results": results,
+            "datas": {"canvas encode": got_one, "canvas encode_many": got, "fill encode": filled,
+                      "fill encode_many": filled_many, "pallas encode": [direct]}}
 
 
 def run_loop(device, image, n_cpu=1):
@@ -1056,7 +1069,7 @@ def run_loop(device, image, n_cpu=1):
         for name in ("slic_assign", "eps_components"):
             check(device.type != "cuda" or launches[name] > 0, f"the loop ({label}) launched {name} no time")
         rec = decode_and_score([image], [data], device)[0]
-        rec.update({"seconds": seconds, "launches": launches, "shapes": shapes,
+        rec.update({"seconds": seconds, "launches": launches, "shapes": shapes, "data": data,
                     "stages": {k: v["seconds"] for k, v in timing.stage_report().items()}})
         if i < n_cpu or device.type == "cuda":
             t0 = time.perf_counter()
@@ -1104,7 +1117,7 @@ def run_options(device, image):
         for name in ("slic_assign", "eps_components"):
             check(device.type != "cuda" or launches[name] > 0, f"{label} launched {name} no time")
         rec = decode_and_score([image], [data], device)[0]
-        rec.update({"seconds": seconds, "launches": launches, "shapes": shapes,
+        rec.update({"seconds": seconds, "launches": launches, "shapes": shapes, "data": data,
                     "stages": {k: v["seconds"] for k, v in timing.stage_report().items()}})
         t0 = time.perf_counter()
         ref = rtt.encode(image, config, device="cpu")
@@ -1135,14 +1148,18 @@ def nonative_child(out_path: str) -> int:
     environment (the switch is read once per process).  Runs `encode` of the
     first 768x512 image, `encode_many` of the first two of the batch and the
     loop on the first image, each on the card with counts, stage seconds and
-    connected-components passes read around it, each byte for byte equal to
-    the same call on the CPU; then times the propagation on the card per
-    pass.  Writes a JSON record to `out_path`."""
+    connected-components passes read around it and its payload digest, the
+    first and the last byte for byte equal to the same call on the CPU (the
+    batch is held by phase 15 against the JAX package); then `encode` of the
+    batch's third image (seed 102) for the parity phase, held by its digest
+    only; then times the propagation on the card per pass.  Writes a JSON
+    record to `out_path`."""
     import torch
 
     import roibasedimagecompression_torch as rtt
     from roibasedimagecompression_torch import config as cfg
     from roibasedimagecompression_torch import native
+    from roibasedimagecompression_torch.io import container
     from roibasedimagecompression_torch.ops import canny
     from roibasedimagecompression_torch.ops import cc as CC
     from roibasedimagecompression_torch.ops import colors
@@ -1152,14 +1169,15 @@ def nonative_child(out_path: str) -> int:
 
     check(not native.available(), "RHCCQ_NATIVE=0 did not switch the runtime off")
     device = torch.device("cuda")
-    images = [synthetic_image(100 + i, 512, 768) for i in range(2)]
+    images = [synthetic_image(100 + i, 512, 768) for i in range(3)]
     loop = cfg.CodecConfig(batched=False)
     runs = {}
     for label, card, cpu in (
         ("encode", lambda: rtt.encode(images[0], device=device),
          lambda: rtt.encode(images[0], device="cpu")),
-        ("encode_many of 2", lambda: STREAM.encode_many(images, None, device),
-         lambda: STREAM.encode_many(images, None, "cpu")),
+        # Held by phase 15 against the JAX package's digests: its CPU run
+        # (1.5 minutes on the card's host) is left out.
+        ("encode_many of 2", lambda: STREAM.encode_many(images[:2], None, device), None),
         ("loop", lambda: rtt.encode(images[0], loop, device=device),
          lambda: rtt.encode(images[0], loop, device="cpu")),
     ):
@@ -1173,15 +1191,26 @@ def nonative_child(out_path: str) -> int:
         stages = {k: round(v["seconds"], 4) for k, v in timing.stage_report().items()}
         for name in ("slic_assign", "eps_components"):
             check(launches[name] > 0, f"the run without the runtime ({label}) launched {name} no time")
-        t0 = time.perf_counter()
-        ref = cpu()
-        cpu_seconds = time.perf_counter() - t0
-        check(data == ref, f"without the runtime, {label} on the card wrote other bytes than on the CPU")
+        cpu_seconds = None
+        if cpu is not None:
+            t0 = time.perf_counter()
+            ref = cpu()
+            cpu_seconds = time.perf_counter() - t0
+            check(data == ref, f"without the runtime, {label} on the card wrote other bytes than on the CPU")
         datas = data if isinstance(data, list) else [data]
         rec = decode_and_score(images[: len(datas)], datas, device)
         runs[label] = {"seconds": seconds, "cpu_seconds": cpu_seconds, "launches": launches,
                        "shapes": shapes, "cc_passes": passes, "stages": stages,
-                       "psnr_db": [r["psnr_db"] for r in rec], "bpp": [r["bpp"] for r in rec]}
+                       "psnr_db": [r["psnr_db"] for r in rec], "bpp": [r["bpp"] for r in rec],
+                       "digests": [container.payload_digest(d) for d in datas]}
+    # The parity phase's run without the runtime: seed 102 (ROI pixels),
+    # held by its digest only (no CPU run).
+    reset_counts()
+    t0 = time.perf_counter()
+    data = rtt.encode(images[2], device=device)
+    parity = {"seconds": time.perf_counter() - t0, "launches": read_counts()[0],
+              "digest": container.payload_digest(data),
+              "psnr_db": decode_and_score(images[2:], [data], device)[0]["psnr_db"]}
     # The propagation's card time per pass: the first image's weak Canny
     # graph (one map), and the 20 candidates' graphs of its gray image at
     # once, as the threshold scoring runs them.
@@ -1200,7 +1229,7 @@ def nonative_child(out_path: str) -> int:
         ms = time_cuda(lambda: CC.propagate_labels(weak), reps=3, warmup=1)
         per_pass[label] = {"passes": passes, "ms": ms, "ms_per_pass": ms / passes}
     with open(out_path, "w") as f:
-        json.dump({"runs": runs, "cc": per_pass, "thresholds": [low, high],
+        json.dump({"runs": runs, "cc": per_pass, "thresholds": [low, high], "parity": parity,
                    "launched_shapes": {k: sorted(v) for k, v in launched_shapes.items()}}, f)
     return 0
 
@@ -1226,6 +1255,120 @@ def run_nonative(deadline: float = 900.0) -> dict:
     for name, shapes in rec["launched_shapes"].items():
         launched_shapes[name].update(tuple(s) for s in shapes)
     return rec
+
+
+# ---------------------------------------------------------------------------
+# Parity with the JAX package.
+# ---------------------------------------------------------------------------
+
+PARITY_DATA = os.path.join(HERE, "tests", "data", "jax_parity_768x512.json")
+# Rows of the data file that ROADMAP §C keeps open (row id -> §C item): an
+# open row is printed and not failed.  None is open.
+PARITY_OPEN: dict = {}
+# The CLI's default split margin; CodecConfig()'s is 1.5 (rows h*).
+CLI_MARGIN = {"split_margin": 2.0}
+
+
+def run_parity(device, held: list, image102, nonative_parity: dict) -> dict:
+    """Phase 15: the card's 768x512 encodes against the JAX package's
+    answers in PARITY_DATA (written by the JAX package on the CPU; no JAX
+    here).  `held`: (row, seeds, card bytes, equal to the port's CPU bytes:
+    True, False where that phase took its allowance, None where it made no
+    CPU run) of the encodes phases 5, 7 and 9-12 made.  A digest must equal
+    the file's, except after an allowance, where PSNR is held to the file's
+    within 0.05 dB.  Then the seed-102 encodes of rows d, e, f, g and h on
+    the card, held by their digests only, counts read around each (row j's
+    is `nonative_parity`, from phase 12's child).  Row b's decodes are also
+    scored on the card: PSNR and SSIM to the file's 7 decimals."""
+    import torch
+
+    import roibasedimagecompression_torch as rtt
+    from roibasedimagecompression_torch import config as cfg
+    from roibasedimagecompression_torch.io import container
+    from roibasedimagecompression_torch.models.enhance import enhance_shadows
+    from roibasedimagecompression_torch.ops import metrics
+    from roibasedimagecompression_torch.utils.synthetic import synthetic_image
+
+    with open(PARITY_DATA) as f:
+        doc = json.load(f)
+    entries = {(e["row"], e["seed"]): e for e in doc["entries"]}
+    rows, launches = [], {}
+
+    def hold(row, seed, data, equal_cpu, source, seconds=None):
+        """`data`: the card's bytes, or (phase 12's child) their digest."""
+        e = entries[(row, seed)]
+        digest = data if isinstance(data, str) else container.payload_digest(data)
+        rec = {"row": row, "seed": seed, "source": source, "roi_pixels": e["port_roi_pixels"],
+               "digest_equal": digest == e["digest"]}
+        if seconds is not None:
+            rec["seconds"] = seconds
+        if not rec["digest_equal"] and not isinstance(data, str):
+            img = synthetic_image(seed, 512, 768)
+            if e["enhance"]:
+                img = enhance_shadows(img, device=device)
+            rec["psnr_db"] = psnr(img, rtt.decode(data))
+            rec["dpsnr_jax"] = rec["psnr_db"] - e["psnr"]
+        rows.append(rec)
+        label = f"[parity] row {row}, seed {seed} ({source})"
+        if row in PARITY_OPEN:
+            print(f"{label}: open ({PARITY_OPEN[row]}): {json.dumps(rec)}")
+        elif equal_cpu is False and "dpsnr_jax" in rec:
+            check(abs(rec["dpsnr_jax"]) <= 0.05,
+                  f"{label}: the card's PSNR departs from the JAX package's: {rec}")
+            print(f"{label}: after the allowance to the CPU: {json.dumps(rec)}")
+        else:
+            check(rec["digest_equal"], f"{label}: the payload digest differs from the JAX package's: {rec}")
+
+    for row, seeds, datas, equal, source in held:
+        for seed, data, eq in zip(seeds, datas, equal):
+            hold(row, seed, data, eq, source)
+    # Row b's decodes, scored on the card: the jitted quality_metrics' PSNR
+    # and SSIM, to the file's 7 decimals.
+    _, b_seeds, b_datas, _, _ = next(h for h in held if h[0] == "b")
+    for seed, data in zip(b_seeds, b_datas):
+        q = metrics.quality_metrics(synthetic_image(seed, 512, 768), rtt.decode(data), device)
+        want = entries[("b", seed)]
+        check(round(q["psnr"], 7) == want["psnr"] and round(q["ssim"], 7) == want["ssim"],
+              f"row b seed {seed}: PSNR {q['psnr']}, SSIM {q['ssim']} on the card; the file has {want}")
+
+    new = (("d", cfg.CodecConfig(), {"RHCCQ_SLIC_PALLAS": "1"}, False),
+           ("e1", cfg.CodecConfig(batched=False), {}, False),
+           ("e2", cfg.CodecConfig(batched=False, single_region=True), {}, False),
+           ("f1", cfg.CodecConfig(region_fusion=True), {}, False),
+           ("f2", cfg.CodecConfig(weighted_split=True), {}, False),
+           ("f3", cfg.CodecConfig(batched=False, region_fusion=True, weighted_split=True), {}, False),
+           ("g", cfg.CodecConfig(weighted_split=True, split_method="kmeans"), {}, False),
+           ("h1", cfg.CodecConfig(split_method="mediancut", **CLI_MARGIN), {}, False),
+           ("h2", cfg.CodecConfig(split_method="kmeans-mc", **CLI_MARGIN), {}, False),
+           ("h3", cfg.CodecConfig(**CLI_MARGIN), {}, True))
+    for row, config, env, enhance in new:
+        img = enhance_shadows(image102, device=device) if enhance else image102
+        os.environ.update(env)
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            data = rtt.encode(img, config, device=device)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = read_counts()[0]
+        finally:
+            for k in env:
+                del os.environ[k]
+        for name in ("slic_assign", "eps_components"):
+            check(device.type != "cuda" or counts[name] > 0, f"the parity run of row {row} launched {name} no time")
+        launches[row] = counts
+        hold(row, 102, data, None, "a new card encode", seconds)
+    launches["j1"] = nonative_parity["launches"]
+    e = entries[("j1", 102)]
+    rec = {"row": "j1", "seed": 102, "source": "a new card encode under RHCCQ_NATIVE=0",
+           "roi_pixels": e["port_roi_pixels"], "seconds": nonative_parity["seconds"],
+           "digest_equal": nonative_parity["digest"] == e["digest"]}
+    rows.append(rec)
+    check(rec["digest_equal"] or "j1" in PARITY_OPEN,
+          f"[parity] row j1, seed 102: the payload digest differs from the JAX package's: {rec}")
+    totals = {name: sum(c[name] for c in launches.values()) for name in next(iter(launches.values()))}
+    return {"rows": rows, "launches": launches, "launch_totals": totals, "ssim_checked": len(b_seeds)}
 
 
 def device_idle_share(fn) -> dict:
@@ -1596,16 +1739,18 @@ def main() -> int:
 
     print(f"[time] phase 7 ended at {time.perf_counter() - t_script:.1f} s")
     # -- 8. stream ------------------------------------------------------------------
+    # Three batches on two workers: one worker takes a second batch, reusing
+    # its thread's CUDA streams.  No profiler window here: phase 7 measures
+    # the idle share, and a traced stream took two minutes of the script.
     sr = run_stream(device, batches, runs["default"]["datas"])
     for name in ("slic_assign", "eps_components", "eps_rounds"):
         check(sr["launches"][name] > 0, f"the stream path launched {name} no time")
-    print(f"[stream] encode_stream of 3 batches of 8, workers=2: equal to sequential encode_many byte "
+    print(f"[stream] encode_stream of {len(batches)} batches of 8, workers=2: equal to sequential encode_many byte "
           f"for byte; {sr['seconds']:.3f} s, {sr['images_per_second']:.3f} images/s "
           f"(sequential: {sr['sequential_seconds']:.3f} s, {sr['sequential_images_per_second']:.3f} images/s) [{card}]")
     print(f"[stream] launches: {sr['launches']}")
     for name, hist in sr["shapes"].items():
         print(f"[stream] launch shapes, {name}: {json.dumps(hist)}")
-    print(f"[stream] profiler window over one encode_stream: {json.dumps(sr['idle'])} [{card}]")
 
     print(f"[time] phase 8 ended at {time.perf_counter() - t_script:.1f} s")
     # -- 9. cli ---------------------------------------------------------------------
@@ -1683,8 +1828,9 @@ def main() -> int:
     t_nn = time.perf_counter()
     nn = run_nonative()
     for label, rec in nn["runs"].items():
-        print(f"[nonative] {label}: {rec['seconds']:.3f} s on the card, {rec['cpu_seconds']:.3f} s on the "
-              f"CPU, bytes equal under RHCCQ_NATIVE=0; {rec['cc_passes']} propagation passes; PSNR "
+        held = ("no CPU run (phase 15 holds it)" if rec["cpu_seconds"] is None else
+                f"{rec['cpu_seconds']:.3f} s on the CPU, bytes equal under RHCCQ_NATIVE=0")
+        print(f"[nonative] {label}: {rec['seconds']:.3f} s on the card, {held}; {rec['cc_passes']} propagation passes; PSNR "
               f"{[round(p, 2) for p in rec['psnr_db']]} dB, bpp {[round(b, 3) for b in rec['bpp']]} [{card}]")
         print(f"[nonative] {label} launches: {rec['launches']}")
         for name, hist in rec["shapes"].items():
@@ -1740,7 +1886,58 @@ def main() -> int:
     launches_entry = dv["launch_totals"]
 
     print(f"[time] phase 14 ended at {time.perf_counter() - t_script:.1f} s")
-    # -- 15. cover ------------------------------------------------------------------
+    # -- 15. parity with the JAX package -------------------------------------------
+    # The card's 768x512 encodes against the JAX package's answers, read from
+    # tests/data/jax_parity_768x512.json: those phases 5, 7 and 9-12 made,
+    # then new seed-102 encodes (ROI pixels) of the rows no phase runs there.
+    t_par = time.perf_counter()
+
+    def flags(recs):
+        return [r.get("bytes_equal_cpu") for r in recs]
+
+    f5, f7 = flags(results), flags(runs["default"]["results"])
+    opts = cr["options"]
+    held = [
+        ("a", (100, 101), datas_one, f5, "phase 5"),
+        ("b", tuple(range(100, 108)), runs["default"]["datas"], f7, "phase 7"),
+        ("c", tuple(range(100, 108)), runs["low_latency"]["datas"], flags(runs["low_latency"]["results"]),
+         "phase 7, low_latency()"),
+        ("h0", (101,), [opts["defaults"]["data"]], flags([opts["defaults"]]), "phase 9, CLI defaults"),
+        ("h0", (101,), [opts["container-level-7"]["data"]], flags([opts["container-level-7"]]),
+         "phase 9, --container-level 7"),
+        ("h1", (101,), [opts["mediancut"]["data"]], flags([opts["mediancut"]]), "phase 9"),
+        ("h2", (101,), [opts["kmeans-mc"]["data"]], flags([opts["kmeans-mc"]]), "phase 9"),
+        ("h3", (101,), [opts["enhance-shadows"]["data"]], flags([opts["enhance-shadows"]]), "phase 9"),
+        ("i1", (100, 101), cv["datas"]["canvas encode"], f5, "phase 10"),
+        ("i2", (100, 101, 102, 103), cv["datas"]["canvas encode_many"], f7[:4], "phase 10"),
+        ("i3", (100, 101), cv["datas"]["fill encode"], flags(cv["results"][:2]), "phase 10"),
+        ("i4", (100, 101, 102, 103), cv["datas"]["fill encode_many"], flags(cv["results"][2:]), "phase 10"),
+        ("d", (100,), cv["datas"]["pallas encode"], flags([cv["runs"]["encode, RHCCQ_SLIC_PALLAS=1"]]),
+         "phase 10"),
+        ("e2", (100,), [lp["runs"]["single_region"]["data"]], [True], "phase 11"),
+        ("e1", (100,), [lp["runs"]["roi"]["data"]], [True], "phase 11"),
+        ("f1", (100,), [op["encode, region_fusion=True"]["data"]], [True], "phase 12"),
+        ("f2", (100,), [op["encode, weighted_split=True"]["data"]], [True], "phase 12"),
+        ("f3", (100,), [op["loop, region_fusion=True, weighted_split=True"]["data"]], [True], "phase 12"),
+        ("j1", (100,), nn["runs"]["encode"]["digests"], [True], "phase 12's child"),
+        ("j2", (100, 101), nn["runs"]["encode_many of 2"]["digests"], [None, None], "phase 12's child"),
+        ("j3", (100,), nn["runs"]["loop"]["digests"], [True], "phase 12's child"),
+    ]
+    par = run_parity(device, held, batches[0][2], nn["parity"])
+    for rec in par["rows"]:
+        print(f"[parity] {json.dumps(rec)} [{card}]")
+    for row, rec in par["launches"].items():
+        print(f"[parity] row {row} seed 102 launches: {rec}")
+    n_equal = sum(r["digest_equal"] for r in par["rows"])
+    parity_line = json.dumps({"parity": {"rows": len(par["rows"]), "equal": n_equal,
+                                         "open": sorted({r["row"] for r in par["rows"] if r["row"] in PARITY_OPEN})}})
+    print(f"[parity] {n_equal} of {len(par['rows'])} card encodes carry the JAX package's payload digest; "
+          f"row b's {par['ssim_checked']} decodes score the file's PSNR and SSIM on the card")
+    print(f"[parity] phase seconds: {time.perf_counter() - t_par:.1f}")
+    launches_parity = par["launch_totals"]
+
+    print(f"[time] phase 15 ended at {time.perf_counter() - t_script:.1f} s")
+    # -- 16. cover ------------------------------------------------------------------
     # Whatever shape a path launched a kernel at, beyond those of phases 3 and
     # 4, is held against the plain version here.
     def slic_key(r):
@@ -1762,20 +1959,21 @@ def main() -> int:
           f"but launched by no path: slic_assign {[slic_key(r) for r in k1 if not r['on_path']]}, "
           f"packed eps loop {[r['shape'] for r in k2_packed if not r['on_path']]}")
 
-    print(f"[time] phase 15 ended at {time.perf_counter() - t_script:.1f} s")
-    # -- 16. kernels line ------------------------------------------------------------
+    print(f"[time] phase 16 ended at {time.perf_counter() - t_script:.1f} s")
+    # -- 17. kernels line ------------------------------------------------------------
     # `launches` count the main paths, each read around its own run from 0:
     # the one-image encodes of phase 5, the warm encode_many at CodecConfig()
     # of phase 7, the in-process CLI encodes of phase 9, the canvas runs of
     # phase 10 (kernel 1's direct form runs in its RHCCQ_SLIC_PALLAS=1
     # encode), the loop's two encodes of phase 11, phase 12's option runs and
-    # runs without the runtime, and phase 14's entry surface (entry(),
-    # analysis_step, batched_analysis_step and the mesh encodes); the
-    # stream's are beside them.
+    # runs without the runtime, phase 14's entry surface (entry(),
+    # analysis_step, batched_analysis_step and the mesh encodes) and phase
+    # 15's new seed-102 encodes; the stream's are beside them.
     def launches_of(name):
         return {"launches": launches_one[name] + launches_batch[name] + launches_cli[name]
                 + launches_canvas[name] + launches_loop[name] + launches_options[name]
-                + launches_nonative[name] + launches_entry[name],
+                + launches_nonative[name] + launches_entry[name] + launches_parity[name],
+                "launches_parity": launches_parity[name],
                 "launches_one_image": launches_one[name], "launches_batch": launches_batch[name],
                 "launches_cli": launches_cli[name], "launches_canvas": launches_canvas[name],
                 "launches_loop": launches_loop[name], "launches_options": launches_options[name],
@@ -1815,7 +2013,7 @@ def main() -> int:
         | {"launches_alone": launches_one["eps_sweep_alone"] + launches_batch["eps_sweep_alone"]
                             + launches_cli["eps_sweep_alone"] + launches_loop["eps_sweep_alone"]
                             + launches_options["eps_sweep_alone"] + launches_nonative["eps_sweep_alone"]
-                            + launches_entry["eps_sweep_alone"],
+                            + launches_entry["eps_sweep_alone"] + launches_parity["eps_sweep_alone"],
            "max_abs_err": max(r["max_abs_err"] for r in k2),
            "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
            "bound_by": big["bound_by"], "library_ms": None,
@@ -1826,7 +2024,8 @@ def main() -> int:
         | launches_of("eps_components")
         | {"rounds": launches_one["eps_rounds"] + launches_batch["eps_rounds"] + launches_cli["eps_rounds"]
                      + launches_loop["eps_rounds"] + launches_options["eps_rounds"]
-                     + launches_nonative["eps_rounds"] + launches_entry["eps_rounds"],
+                     + launches_nonative["eps_rounds"] + launches_entry["eps_rounds"]
+                     + launches_parity["eps_rounds"],
            "max_abs_err": max(r["loop_max_abs_err"] for r in k2 + k2_packed),
            # One whole call (pack, loop kernel, read-back) through the packed
            # entry at the largest shape a path launched; its bound is one
@@ -1844,6 +2043,7 @@ def main() -> int:
                                               "loop_event_ms", "plain_driver_ms", "bound_ms")}
                            for r in k2_packed]},
     ]
+    print(parity_line)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

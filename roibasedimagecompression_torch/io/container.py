@@ -14,6 +14,7 @@ code.  This module is host code: DEFLATE stays on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import io as _io
 import pickle
 import struct
@@ -173,6 +174,18 @@ def unpack(data: bytes) -> Rhccq:
         dtype = np.uint8 if bpp <= 1 else (np.uint16 if bpp <= 2 else np.uint32)
     indices = np.frombuffer(raw, dtype=dtype).reshape(h, w).copy()
     return Rhccq(palette=palette, indices=indices, shape=(int(h), int(w)))
+
+
+def payload_digest(data: bytes) -> str:
+    """sha256 of a container's payload: the unpacked palette's bytes, then
+    the index matrix's bytes and its shape.  Equal payloads give equal
+    digests whatever DEFLATE (zlib or libdeflate, any level) wrote them."""
+    p = unpack(data)
+    h = hashlib.sha256()
+    h.update(p.palette.tobytes())
+    h.update(p.indices.tobytes())
+    h.update(repr(tuple(int(s) for s in p.indices.shape)).encode())
+    return h.hexdigest()
 
 
 def save(palette: np.ndarray, indices: np.ndarray, path, shape=None, *,

@@ -24,6 +24,7 @@ from roibasedimagecompression_torch.ops import conv as CONV
 from roibasedimagecompression_torch.ops import lbp as LBP
 from roibasedimagecompression_torch.ops import prng
 from roibasedimagecompression_torch.ops import slic as SLIC
+from roibasedimagecompression_torch.ops import xla_order as XO
 from roibasedimagecompression_torch.parallel import shard as SHARD
 from roibasedimagecompression_torch.utils import dispatch as DISPATCH
 from roibasedimagecompression_torch.utils.timing import stage_timer
@@ -145,22 +146,14 @@ def _pow2_bucket(n: int, minimum: int = 64) -> int:
 
 # XLA's CPU client sums the split score's float32 reductions in an order of
 # its own, read from its dumps (`XLA_FLAGS=--xla_dump_to=DIR`, the optimized
-# HLO and the LLVM IR of each fusion) and held bit for bit by the tests:
-#   - its tree reduction rewriter cuts every reduced dimension longer than 32
-#     into windows of 32 (a shorter one is one window), padded with zeros
-#     split evenly before and after; a window adds its elements one after
-#     another from zero in row-major order; the windows' grid is cut again
-#     until no reduced dimension is longer than 32;
-#   - LLVM vectorizes the last sum over that grid by its width: 8 columns
-#     and 8 rows, one lane per row; 8 columns and more rows, 4 lanes taking
-#     rows in turn; lanes combine as halves, ((0+4)+(2+6))+((1+5)+(3+7)) and
-#     (0+2)+(1+3).  Any other grid is added in row-major order.
-#   - a histogram's entropy adds its bins into 8 lanes (bin b into lane
-#     b % 8) by fused multiply-adds, combined as above.
-# Constants are XLA's folded ones (a division by a constant is a product
-# with its reciprocal; `(x / 3) * 0.7` is one product), and every product
-# that feeds one addition is fused into it, as LLVM emits them.
-_XLA_WINDOW = 32
+# HLO and the LLVM IR of each fusion) and held bit for bit by the tests: the
+# tree reduction's windows and LLVM's lanes over their grid, as
+# `ops/xla_order.py sum_rows` models them for every sum over a map; a
+# histogram's entropy adds its bins into 8 lanes (bin b into lane b % 8) by
+# fused multiply-adds, combined in halves.  Constants are XLA's folded ones
+# (a division by a constant is a product with its reciprocal; `(x / 3) *
+# 0.7` is one product), and every product that feeds one addition is fused
+# into it, as LLVM emits them.
 
 
 _C_COLOR = prng._hex32("0x1.dddddep-3")  # 0.7 / 3
@@ -173,46 +166,6 @@ _C_06 = prng._hex32("0x1.333334p-1")
 _INV_LN2 = prng._hex32("0x1.715476p+0")
 
 
-def _fold(v: torch.Tensor) -> torch.Tensor:
-    """Sequential float32 sum over the last dim, from zero."""
-    acc = torch.zeros(v.shape[:-1], dtype=torch.float32, device=v.device) + v[..., 0]
-    for t in range(1, v.shape[-1]):
-        acc = acc + v[..., t]
-    return acc
-
-
-def _halves(lanes: list) -> torch.Tensor:
-    while len(lanes) > 1:
-        h = len(lanes) // 2
-        lanes = [lanes[i] + lanes[i + h] for i in range(h)]
-    return lanes[0]
-
-
-def _xla_sums(x: torch.Tensor) -> torch.Tensor:
-    """(N, H, W) float32 -> (N,): each row's sum in XLA's CPU order."""
-    while x.shape[1] > _XLA_WINDOW or x.shape[2] > _XLA_WINDOW:
-        n, h, w = x.shape
-        wr, wc = min(h, _XLA_WINDOW), min(w, _XLA_WINDOW)
-        pr, pc = (-h) % wr, (-w) % wc
-        if pr or pc:
-            x = torch.nn.functional.pad(x, (pc // 2, pc - pc // 2, pr // 2, pr - pr // 2))
-        nr, nc = x.shape[1] // wr, x.shape[2] // wc
-        v = x.reshape(n, nr, wr, nc, wc).permute(0, 1, 3, 2, 4).reshape(n, nr, nc, wr * wc)
-        x = _fold(v)
-    n, nr, nc = x.shape
-    if nc == 8 and nr % 4 == 0:
-        lanes_n = 8 if nr == 8 else 4
-        rows = [_fold(x[:, r]) for r in range(nr)]  # each row's 8 in turn
-        lanes = []
-        for j in range(lanes_n):
-            acc = rows[j]
-            for r in range(j + lanes_n, nr, lanes_n):
-                acc = _fold(torch.stack([acc] + [x[:, r, c] for c in range(nc)], dim=-1))
-            lanes.append(acc)
-        return _halves(lanes)
-    return _fold(x.reshape(n, nr * nc))
-
-
 def _xla_entropy_sum(h: torch.Tensor, logh: torch.Tensor) -> torch.Tensor:
     """(N, bins) -> (N,): sum of h * log2 over bins in XLA's lane order."""
     lanes = []
@@ -221,7 +174,7 @@ def _xla_entropy_sum(h: torch.Tensor, logh: torch.Tensor) -> torch.Tensor:
         for b in range(j, h.shape[1], 8):
             acc = COL.fma32(h[:, b], logh[:, b], acc)
         lanes.append(acc)
-    return _halves(lanes)
+    return XO.halves(lanes)
 
 
 def _split_score_batch(rgb: torch.Tensor, mask: torch.Tensor):
@@ -247,7 +200,7 @@ def _split_score_batch(rgb: torch.Tensor, mask: torch.Tensor):
     grad = CONV.sobel_skimage(gray)
     chans = [lab[..., 0], lab[..., 0] * lab[..., 0], lab[..., 1], lab[..., 1] * lab[..., 1],
              lab[..., 2], lab[..., 2] * lab[..., 2], gm, grad, grad * grad, gray, gray * gray]
-    sums = _xla_sums((torch.stack(chans, dim=1) * maskf[:, None]).reshape(b * len(chans), *gray.shape[1:]))
+    sums = XO.sum_rows((torch.stack(chans, dim=1) * maskf[:, None]).reshape(b * len(chans), *gray.shape[1:]))
     means = (sums.reshape(b, len(chans)) / safe[:, None]).unbind(1)
 
     def std(mu, sq):

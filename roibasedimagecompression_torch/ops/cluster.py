@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from roibasedimagecompression_torch.ops import prng
+from roibasedimagecompression_torch.ops import xla_order as XO
 from roibasedimagecompression_torch.ops.colors import fma32
 from roibasedimagecompression_torch.ops.cuda import epscc as EPS
 from roibasedimagecompression_torch.parallel import shard as SHARD
@@ -100,34 +101,130 @@ def _fma_tiny(a: torch.Tensor, b: torch.Tensor, c: float) -> torch.Tensor:
     return torch.where(p > 0, r, torch.full_like(r, float(np.float32(c))))
 
 
+# ---------------------------------------------------------------------------
+# The weighted centre sums in the order of XLA's CPU run.
+#
+# The JAX package adds them as a one-hot product (weights x points) per chunk
+# of min(2048, m) points, the chunks' products added in turn.  XLA hands a
+# chunk's product to Eigen as a (3 x K) by (K x chunk) contraction, K the
+# centre bucket; each output is a chain of fused multiply-adds over the
+# points, in point order from zero, within a span of points, and the spans
+# combine as Eigen's heuristics decide on an 8-thread host:
+#   - K < 4: one span, the whole chunk;
+#   - Eigen's inner-dimension thread count (`_eigen_threads_by_k`, its cost
+#     model) 2 or more: spans of max(96, ceil8(chunk / threads)) points,
+#     combined as the box filter's shards are (ops/xla_order.py eigen_combine);
+#   - else sequential: spans of 256 points (its depth block), added in turn.
+# Read with probes of one Lloyd step of the JAX kmeans on rows whose sums and
+# products pass 2^24, K from 2 to 256 and 128 to 8192 points.  A centre whose
+# products are exact and whose sum stays within 2^24 is exact in any order.
+# ---------------------------------------------------------------------------
+
+_EIGEN_THREADS = 8
+_EIGEN_KC = 256
+_WEIGHTED_CHUNK = 2048
+
+
+def _eigen_threads_by_k(m: int, n: int, k: int) -> int:
+    """Eigen's `numThreadsInnerDim` for an (m x k) by (k x n) float
+    contraction on an 8-thread pool: the thread count whose cost-model time
+    is least (1 when sharding the inner dimension does not pay)."""
+    per_k = 2.0 * m * n / 8 + 11 / 64 * 4 + 11 / 64 * 4 * n
+    total = k * per_k
+    reduction = m * n * (11 / 64 * 3 + 1 / 8)
+    best, low = 1, total
+    for nt in range(2, _EIGEN_THREADS + 1, 2):
+        cost = total / nt + 100000 + nt * (reduction + 3000)
+        if cost < low:
+            best, low = nt, cost
+    return best
+
+
+def _weighted_spans(chunk: int, k_max: int) -> tuple:
+    """(span length, True where the spans combine four by four) of one
+    chunk's contraction."""
+    if k_max < 4:
+        return chunk, False
+    nt = _eigen_threads_by_k(3, k_max, chunk)
+    if nt >= 2 and chunk // nt > 32:
+        return min(chunk, max(96, -(-(-(-chunk // nt)) // 8) * 8)), True
+    return min(chunk, _EIGEN_KC), False
+
+
+def _fma_chains(chain: torch.Tensor, w: torch.Tensor, pts: torch.Tensor, n_chains: int) -> torch.Tensor:
+    """(n_chains, 3) float32: for each chain id, acc = fma(w, point, acc)
+    from zero over its entries in the order given.  One step per position
+    in the longest chain, every chain at once."""
+    dev = pts.device
+    acc = torch.zeros((n_chains, 3), dtype=torch.float32, device=dev)
+    if chain.numel() == 0:
+        return acc
+    chain, order = torch.sort(chain, stable=True)
+    w, pts = w[order], pts[order]
+    first = torch.searchsorted(chain, chain, side="left")
+    pos = torch.arange(chain.numel(), device=dev) - first
+    by_pos = torch.argsort(pos, stable=True)
+    counts = torch.bincount(pos).tolist()
+    s = 0
+    for n in counts:
+        sel = by_pos[s : s + n]
+        s += n
+        c = chain[sel]
+        acc[c] = fma32(w[sel, None], pts[sel], acc[c])
+    return acc
+
+
 def _weighted_sums(labels: torch.Tensor, w: torch.Tensor, points: torch.Tensor,
                    valid: torch.Tensor, k_max: int) -> torch.Tensor:
     """(B, k_max, 3) float32 sums of w * point per label, as the JAX
-    package's weighted one-hot product adds them on the CPU (chunks of
-    min(2048, m) points).  While every row's weighted total stays below 2^24
-    each product and partial sum is an exact integer, so any order gives the
-    same floats.  Beyond that: chunks of <= 256 points take XLA's naive dot,
-    a sequential fold of fused multiply-adds in point order; larger chunks
-    Eigen's sharded order (ops/slic.py `_centre_sums`) over rounded
-    products, which a probe matched where the products are exact (ROADMAP
-    §C item 11 keeps the rest)."""
-    from roibasedimagecompression_torch.ops import slic as SLIC
-
+    package's weighted one-hot product adds them on the CPU (see above).
+    Centres that are exact in any order come from one float64 sum; the
+    others follow the chains and spans."""
     b, m, _ = points.shape
     dev = points.device
-    sums = torch.zeros((b, k_max, 3), dtype=torch.float32, device=dev)
-    if float((w.double().sum(dim=1) * 255.0).max()) < 2**24:
-        return sums.scatter_add_(1, labels[..., None].expand(b, m, 3), w[..., None] * points)
-    chunk = min(2048, m)
-    if chunk <= 256 and m == chunk:
-        rows = torch.arange(b, device=dev)
-        for j in range(m):
-            idx = labels[:, j]
-            cur = sums[rows, idx]
-            sums[rows, idx] = fma32(w[:, j, None], points[:, j], cur)
-        return sums
-    prod = (w.double()[..., None] * points.double()).float()
-    return SLIC._centre_sums(labels, prod, valid, m, chunk, k_max)
+    w = torch.where(valid, w, torch.zeros((), device=dev))
+    lab = labels.long()
+    if float((w.double().sum(dim=1) * 255.0).max()) < 2**24:  # every row exact: one float32 sum
+        sums = torch.zeros((b, k_max, 3), dtype=torch.float32, device=dev)
+        return sums.scatter_add_(1, lab[..., None].expand(b, m, 3), w[..., None] * points)
+    prod = w.double()[..., None] * points.double()
+    total = torch.zeros((b, k_max, 3), dtype=torch.float64, device=dev)
+    total.scatter_add_(1, lab[..., None].expand(b, m, 3), prod)
+    rounded = torch.zeros((b, k_max), dtype=torch.float64, device=dev)
+    rounded.scatter_add_(1, lab, ((prod.float().double() != prod).any(dim=2) & valid).double())
+    inexact = (rounded > 0) | (total > 2.0**24).any(dim=2)
+    if not bool(inexact.any()):
+        return total.float()
+
+    chunk = min(_WEIGHTED_CHUNK, m)
+    span, grouped = _weighted_spans(chunk, k_max)
+    n_chunks = -(-m // chunk)
+    n_spans = -(-chunk // span)
+    t = torch.arange(m, device=dev)
+    slot = (t // chunk) * n_spans + (t % chunk) // span  # (chunk, span) of each point
+    rows, cols = torch.nonzero(inexact[torch.arange(b, device=dev)[:, None], lab] & valid, as_tuple=True)
+    n_slots = n_chunks * n_spans
+    chain = (rows * n_slots + slot[cols]) * k_max + lab[rows, cols]
+    fused = _fma_chains(chain, w[rows, cols], points[rows, cols], b * n_slots * k_max)
+    part = torch.zeros((b, n_slots, k_max, 3), dtype=torch.float64, device=dev)
+    part.index_put_((torch.arange(b, device=dev)[:, None].expand(b, m), slot[None].expand(b, m), lab),
+                    prod, accumulate=True)
+    part = torch.where(inexact[:, None, :, None], fused.view(b, n_slots, k_max, 3), part.float())
+    part = part.view(b, n_chunks, n_spans, k_max, 3)
+
+    def combine(spans):
+        if grouped:  # K >= 64 here, so 3K fills whole packets: no scalar tail
+            return XO.eigen_combine(spans)
+        out = spans[0]
+        for x in spans[1:]:
+            out = out + x
+        return out
+
+    out = None
+    for c in range(n_chunks):
+        d = combine([part[:, c, s] for s in range(n_spans)])
+        out = d if out is None else out + d
+    return out
 
 
 def kmeans_rows(

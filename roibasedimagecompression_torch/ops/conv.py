@@ -7,7 +7,7 @@ name (mirror without repeating the edge, cv2's BORDER_REFLECT_101).
 
 `box_density` adds its k*k taps in the order of the JAX package's CPU
 convolution, read from XLA's CPU run (Eigen's contraction of the image
-patches): see `_eigen_lanes` and `_eigen_k_shards`.  The gap-bridging reach
+patches): see `ops/xla_order.py`.  The gap-bridging reach
 maps (`conv2d_same_multi`) are only ever tested > 0, so they are computed
 exactly as hit tests.
 """
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from roibasedimagecompression_torch.ops import colors as COL
+from roibasedimagecompression_torch.ops import xla_order as XO
 
 
 def _reflect_index(n: int, before: int, after: int) -> np.ndarray:
@@ -103,87 +104,6 @@ def gaussian_blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
     return taps(taps(x, 1, k), 2, k)
 
 
-
-# ---------------------------------------------------------------------------
-# Box density in the order of XLA's CPU convolution.
-#
-# XLA runs the JAX package's single-channel convolution as an Eigen
-# contraction of the k*k image patches with the kernel (8-float packets).
-# Each output pixel adds its taps, in row-major window order, into 8 lanes
-# (tap t into lane t % 8, one after another), folds the lanes as
-# ((l0 + l1) + (l4 + l5)) + ((l2 + l3) + (l6 + l7)) and adds the last k*k % 8
-# taps one by one.  When k*k / 8 > 32 (k = 25), Eigen shards the taps across
-# the 8 threads of an 8-core host: blocks of max(96, ceil8(k*k / 8)) taps,
-# each summed as above, grouped four by four and combined as
-# (b0 + b1) + (b2 + b3) (b0 + ((b1 + b2) + b3) on the last hw % 8 pixels,
-# its scalar loop), a shorter group in order, then the groups as the
-# blocks.  Read with probes of one 2^24 and two 1.0 values in a window of a
-# ones-kernel convolution (the 1.0s survive iff they meet before the 2^24),
-# then checked on random binary maps of many sizes.  Like SLIC's centre
-# sums (ops/slic.py) this order follows an 8-thread host.
-# ---------------------------------------------------------------------------
-
-_LANES = 8
-_SHARDS = 8
-
-
-def _eigen_lanes(tap, taps: range) -> torch.Tensor:
-    """Sum of tap(t) over `taps` in Eigen's lane order."""
-    d8 = len(taps) // _LANES * _LANES
-    lanes = [None] * _LANES
-    for i in range(d8):
-        v = tap(taps[i])
-        j = i % _LANES
-        lanes[j] = v if lanes[j] is None else lanes[j] + v
-    if d8:
-        acc = ((lanes[0] + lanes[1]) + (lanes[4] + lanes[5])) + (
-            (lanes[2] + lanes[3]) + (lanes[6] + lanes[7])
-        )
-    else:
-        acc = torch.zeros_like(tap(taps[0]))
-    for i in range(d8, len(taps)):
-        acc = acc + tap(taps[i])
-    return acc
-
-
-def _add4(dst, a, b, c, tail: int):
-    """Eigen's addAllToBuffer: (dst + a) + (b + c) over whole packets, and
-    dst + ((a + b) + c) over the last `tail` elements of the flat buffer."""
-    out = (dst + a) + (b + c)
-    if tail:
-        flat, d, a_, b_, c_ = (t.reshape(-1) for t in (out, dst, a, b, c))
-        flat[-tail:] = d[-tail:] + ((a_[-tail:] + b_[-tail:]) + c_[-tail:])
-    return out
-
-
-def _eigen_k_shards(tap, n_taps: int, n_out: int) -> torch.Tensor:
-    """Sum of tap(0..n_taps-1) as Eigen's contraction sharded over the taps
-    on 8 threads (n_out: output elements, whose last n_out % 8 take the
-    scalar loop of the buffer additions)."""
-    per_thread = -(-n_taps // _SHARDS)
-    size = min(n_taps, max(12 * _LANES, -(-per_thread // _LANES) * _LANES))
-    blocks = [_eigen_lanes(tap, range(s, min(s + size, n_taps))) for s in range(0, n_taps, size)]
-    tail = n_out % _LANES
-
-    def reduce(parts):
-        if len(parts) == 4:
-            return _add4(*parts, tail)
-        dst = parts[0]
-        for part in parts[1:]:
-            dst = dst + part
-        return dst
-
-    ranges = [reduce(blocks[s : s + 4]) for s in range(0, len(blocks), 4)]
-    dst, i = ranges[0], 1
-    while i + 2 < len(ranges):
-        dst = _add4(dst, ranges[i], ranges[i + 1], ranges[i + 2], tail)
-        i += 3
-    while i < len(ranges):
-        dst = dst + ranges[i]
-        i += 1
-    return dst
-
-
 def _reflect_pad2(x: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
     """An (H, W) map reflect-padded for a SAME-size (kh, kw) correlation."""
     ph, pw = kh // 2, kw // 2
@@ -212,9 +132,9 @@ def conv2d_same(x: torch.Tensor, kernel) -> torch.Tensor:
         return v if uniform else v * float(flat[t])
 
     n_taps = kh * kw
-    if n_taps // _SHARDS > 32:
-        return _eigen_k_shards(tap, n_taps, h * w)
-    return _eigen_lanes(tap, range(n_taps))
+    if n_taps // XO.SHARDS > 32:
+        return XO.eigen_k_shards(tap, n_taps, h * w)
+    return XO.eigen_lanes(tap, range(n_taps))
 
 
 def box_density(binary: torch.Tensor, kernel_size: int) -> torch.Tensor:

@@ -24,6 +24,17 @@ from roibasedimagecompression_torch.utils.synthetic import synthetic_image
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Runs each test's torch work on one thread and restores the count
+    after: the suite runs several worker processes on the host's cores, and
+    a torch thread pool per worker only adds contention."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture()
 def slic_pallas_mode(monkeypatch):
     """The port follows the JAX SLIC's Pallas mode; its bytes are compared

@@ -1,13 +1,14 @@
 """PyTorch port, evaluation surface and the encode options of the CLI, each
 held against the JAX function on the same numpy input, on the CPU:
 
-- SSIM: mean within 2e-6, each pixel of the map within 3e-4 (float32 window
-  sums in another order; measured at most 1.1e-6 and 2.0e-4 on these cases,
-  where average pooling gives 3.2e-6 and 3.4e-4);
+- SSIM: the mean (eager `ssim` and jitted `quality_metrics`) and every
+  pixel of the map bit for bit (XLA's CPU convolution, reductions and
+  fused multiply-adds, ops/metrics.py); every value of `quality_metrics`
+  bit for bit;
 - harness, adaptive metrics and report: strings and integers exact, numpy
   floats exact, the float32 device means (PSNR, MSE, MAE) within 1e-6
   relative (an ulp or two; a standard deviation over them within 1e-5),
-  SSIM-derived values within 2e-6;
+  SSIM-derived values exact;
 - JPEG search: quality and bytes exact;
 - CLAHE: exact uint8; the cv2 Lab conversions: one unit on a few inputs
   (XLA's `pow` is glibc's powf, not correctly rounded; see ops/colors.py),
@@ -58,11 +59,12 @@ from roibasedimagecompression_torch.utils.synthetic import synthetic_image
 CPU = "cpu"
 
 
-@pytest.fixture()
+@pytest.fixture(autouse=True)
 def one_thread():
-    """Runs a test's torch work on one thread and restores the count after:
-    the suite runs several worker processes on the host's cores, and a torch
-    thread pool per worker only adds contention to these encode-heavy tests."""
+    """Runs each test's torch work on one thread and restores the count
+    after: the suite runs several worker processes on the host's cores, and
+    a torch thread pool per worker only adds contention to these tests (the
+    metrics' float32 orders are many small steps)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -81,7 +83,7 @@ def _degraded(seed, h=128, w=160):
 
 def _close(ours, theirs, path=""):
     """Strings and integers exact, floats within 1e-6 relative (standard
-    deviations within 1e-5), SSIM-derived values within 2e-6."""
+    deviations within 1e-5), SSIM-derived values exact."""
     if isinstance(theirs, dict):
         assert set(ours) == set(theirs), path
         for k in theirs:
@@ -91,10 +93,11 @@ def _close(ours, theirs, path=""):
         for i, (a, b) in enumerate(zip(ours, theirs)):
             _close(a, b, f"{path}[{i}]")
     elif isinstance(theirs, (float, np.floating)):
-        tol = dict(rel=1e-6, abs=1e-6)
         if "ssim" in path:
-            tol = dict(abs=2e-6)
-        elif path.endswith("_std"):
+            assert float(ours) == float(theirs), path
+            return
+        tol = dict(rel=1e-6, abs=1e-6)
+        if path.endswith("_std"):
             tol = dict(abs=1e-5)
         assert float(ours) == pytest.approx(float(theirs), **tol), path
     else:
@@ -106,12 +109,15 @@ def test_ssim_and_ssim_map_match_jax(seed, h, w):
     a, b = _degraded(seed, h, w)
     jm = float(JM.ssim(jnp.asarray(a), jnp.asarray(b)))
     tm = float(TM.ssim(torch.from_numpy(a), torch.from_numpy(b)))
-    assert tm == pytest.approx(jm, abs=2e-6)
+    assert tm == jm
+    assert TM.quality_metrics(a, b, CPU) == JM.quality_metrics(a, b)  # every value, bit for bit
+    gray = float(TM.ssim(torch.from_numpy(a[..., 1]), torch.from_numpy(b[..., 1])))
+    assert gray == float(JM.ssim(jnp.asarray(a[..., 1]), jnp.asarray(b[..., 1])))
     jmap, tmap = JM.ssim_map(a, b), TM.ssim_map(a, b, device=CPU)
     assert tmap.shape == jmap.shape == (h, w) and tmap.dtype == jmap.dtype
-    assert np.abs(tmap - jmap).max() <= 3e-4
+    np.testing.assert_array_equal(tmap.view(np.uint32), jmap.view(np.uint32))
     gray_j, gray_t = JM.ssim_map(a[..., 0], b[..., 0]), TM.ssim_map(a[..., 0], b[..., 0], device=CPU)
-    assert np.abs(gray_t - gray_j).max() <= 3e-4
+    np.testing.assert_array_equal(gray_t.view(np.uint32), gray_j.view(np.uint32))
 
 
 def test_log32_is_xla_log():

@@ -83,12 +83,19 @@ def test_region_fusion_passes_match_jax(seed):
 
 
 def _weighted_problem(rng, b, m, n_valid, w_max):
+    """Seeded rows of colours around a few centres and integer weights below
+    w_max; w_max = (w, share): that share of the points weighs 65,794 to
+    400,000 (its products pass 2^24)."""
     pts = np.clip(rng.integers(0, 4, (b, 1, 3)) * 64 + rng.integers(-40, 41, (b, m, 3)), 0, 255)
     pts = pts.astype(np.float32)
     valid = np.arange(m)[None, :] < np.asarray(n_valid)[:, None]
     pts[~valid] = 0.0
-    w = rng.integers(1, w_max, (b, m)).astype(np.float32) * valid
-    return pts, valid, w
+    heavy = 0.0
+    if isinstance(w_max, tuple):
+        w_max, heavy = w_max
+    w = rng.integers(1, w_max, (b, m))
+    w = np.where(rng.random((b, m)) < heavy, rng.integers(2**24 // 255 + 1, 400_000, (b, m)), w)
+    return pts, valid, w.astype(np.float32) * valid
 
 
 @pytest.mark.parametrize("ks,k_max,m,w_max", [
@@ -96,6 +103,8 @@ def _weighted_problem(rng, b, m, n_valid, w_max):
     ((5, 9, 2), 16, 256, 400_000),   # sums beyond 2^24, products beyond 2^24: XLA's naive dot
     ((7, 30, 3), 32, 4096, 60_000),  # sums beyond 2^24 over 2048-point chunks: Eigen's order
     ((3, 40, 2), 64, 1024, 300),     # exact sums at the 1024 cap
+    ((3, 5, 4), 16, 1024, 723),      # a full-size row: 1024 points of ~370k pixels, sums beyond 2^24
+    ((5, 9, 2), 16, 4096, (2000, 0.005)),  # products beyond 2^24 at 2048-point chunks
 ])
 def test_weighted_kmeans_rows_match_jax(ks, k_max, m, w_max):
     """Weighted k-means (++ draws in proportion to w * d^2 with XLA's fused
@@ -121,6 +130,46 @@ def test_weighted_kmeans_rows_match_jax(ks, k_max, m, w_max):
         iters=10, seed=42, plusplus=True, weights=torch.from_numpy(w),
     ).numpy()
     np.testing.assert_array_equal(got[valid], want[valid])
+
+
+@pytest.mark.parametrize("ks,k_max,m,w_max", [
+    ((3, 5, 4), 16, 1024, 723),               # sequential: 256-point spans, added in turn
+    ((40, 70, 100), 128, 1024, 20_000),       # sharded over 8 threads: 128-point spans
+    ((100, 200, 150), 256, 512, 40_000),      # sharded: 96-point spans, a short last one
+    ((5, 9, 2), 16, 4096, (2000, 0.005)),     # products beyond 2^24, two 2048-point chunks
+    ((100, 200, 150), 256, 2048, (2000, 0.005)),  # 8 spans of 256, products beyond 2^24
+    ((3, 2, 2), 2, 1024, (2000, 0.01)),       # K = 2: one chain over the chunk
+])
+def test_weighted_centre_sums_match_jax(ks, k_max, m, w_max):
+    """The weighted centre sums (ops/cluster.py `_weighted_sums`) bit for bit:
+    one Lloyd step of the JAX kmeans from given centres, its new centres
+    against the port's sums over the JAX labels divided by the pixel counts
+    (exact integers), on every centre that holds a point.  The rows' sums
+    pass 2^24, so only XLA's order gives these bits (ROADMAP §C11)."""
+    rng = np.random.default_rng(m + k_max)
+    b = len(ks)
+    pts, valid, w = _weighted_problem(rng, b, m, [m, m - 10, m // 2], w_max)
+    init = pts[:, rng.integers(0, m // 2, k_max)].copy()
+
+    def step(iters):
+        run = jax.jit(jax.vmap(lambda p1, v1, k1, w1, c1: JCL.kmeans(
+            p1, v1, k1, k_max=k_max, iters=iters, seed=42, chunk=min(2048, m),
+            plusplus=False, init_centers=c1, weights=w1)))
+        labels, centers = run(jnp.asarray(pts), jnp.asarray(valid), jnp.asarray(np.array(ks, np.int32)),
+                              jnp.asarray(w), jnp.asarray(init))
+        return np.asarray(labels), np.asarray(centers)
+
+    labels = np.where(valid, step(0)[0], 0)
+    want = step(1)[1]
+    counts = np.zeros((b, k_max), np.float64)
+    for i in range(b):
+        np.add.at(counts[i], labels[i], w[i])
+    sums = TCL._weighted_sums(torch.from_numpy(labels), torch.from_numpy(w), torch.from_numpy(pts),
+                              torch.from_numpy(valid), k_max).numpy()
+    assert sums.max() > 2**24 > w.sum(axis=1).max()
+    got = sums / np.maximum(counts, 1.0).astype(np.float32)[..., None]
+    live = counts > 0
+    np.testing.assert_array_equal(got.view(np.uint32)[live], want.view(np.uint32)[live])
 
 
 def test_fma_tiny_rounds_halfway_products_up():

@@ -43,11 +43,12 @@ from roibasedimagecompression_torch.utils.synthetic import synthetic_image
 CPU = torch.device("cpu")
 
 
-@pytest.fixture()
+@pytest.fixture(autouse=True)
 def one_thread():
-    """Runs a test's torch work on one thread and restores the count after:
-    the suite runs several worker processes on the host's cores, and a torch
-    thread pool per worker only adds contention to these encode-heavy tests."""
+    """Runs each test's torch work on one thread and restores the count
+    after: the suite runs several worker processes on the host's cores, and
+    a torch thread pool per worker only adds contention to these tests (the
+    metrics' float32 orders are many small steps)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -456,19 +457,16 @@ def test_low_latency_preset_converts():
 
 @pytest.mark.parametrize("seed,sigma", [(5, 4.0), (6, 20.0), (7, 0.0)])
 def test_metrics_match_jax(seed, sigma):
-    """PSNR within 1e-4 dB, SSIM within 1e-4: float32 sums in another order
-    (the window sums of a 1/49-weight convolution, summed otherwise)."""
+    """PSNR within 1e-4 dB (float32 sums in another order); SSIM, eager,
+    and every value of the jitted `quality_metrics` bit for bit
+    (ops/metrics.py follows XLA's CPU arithmetic)."""
     a = synthetic_image(seed, 96, 128)
     b = _noisy(seed, 96, 128, sigma) if sigma else (a // 8) * 8
     ta, tb = torch.from_numpy(a), torch.from_numpy(b)
     assert float(TM.psnr(ta, tb)) == pytest.approx(float(JM.psnr(jnp.asarray(a), jnp.asarray(b))), abs=1e-4)
-    assert float(TM.ssim(ta, tb)) == pytest.approx(float(JM.ssim(jnp.asarray(a), jnp.asarray(b))), abs=1e-4)
-    assert float(TM.ssim(ta[..., 0], tb[..., 0])) == pytest.approx(
-        float(JM.ssim(jnp.asarray(a[..., 0]), jnp.asarray(b[..., 0]))), abs=1e-4)
-    ours, theirs = TM.quality_metrics(a, b, device="cpu"), JM.quality_metrics(a, b)
-    assert set(ours) == set(theirs)
-    for key in theirs:
-        assert ours[key] == pytest.approx(theirs[key], abs=1e-4, rel=1e-5), key
+    assert float(TM.ssim(ta, tb)) == float(JM.ssim(jnp.asarray(a), jnp.asarray(b)))
+    assert float(TM.ssim(ta[..., 0], tb[..., 0])) == float(JM.ssim(jnp.asarray(a[..., 0]), jnp.asarray(b[..., 0])))
+    assert TM.quality_metrics(a, b, device="cpu") == JM.quality_metrics(a, b)
     assert float(TM.psnr(ta, ta)) == float("inf") and float(TM.ssim(ta, ta)) == pytest.approx(1.0)
 
 
