@@ -1,0 +1,11 @@
+"""Tiers 2/3, palette refinement and refit, in ms per image of the window (stage timers,
+`utils/timing.py stage_report`): `.batch` over `encode_many`'s stages,
+`.single` over `encode`'s."""
+
+from portbench.harness import stage_ms_per_image
+
+STAGES = {"batch": ("s.tier23",), "single": ("tier23",)}
+
+
+def read(ctx, suffix):
+    return stage_ms_per_image(ctx, STAGES[suffix]) if suffix in STAGES else None
