@@ -35,6 +35,7 @@ from roibasedimagecompression_torch.models import refine as RF
 from roibasedimagecompression_torch.models import segment as SEG
 from roibasedimagecompression_torch.ops import unique as U
 from roibasedimagecompression_torch.utils import device as DEV
+from roibasedimagecompression_torch.utils import timing
 from roibasedimagecompression_torch.utils.timing import stage_timer
 
 
@@ -594,9 +595,10 @@ def encode(image_rgb: np.ndarray, config: cfg.CodecConfig | None = None,
     """
     config = config or cfg.CodecConfig()
     device = DEV.resolve(device)
-    if config.batched:
-        return encode_batched(image_rgb, config, device)
-    return encode_loop(image_rgb, config, device)
+    with timing.request("encode"):
+        if config.batched:
+            return encode_batched(image_rgb, config, device)
+        return encode_loop(image_rgb, config, device)
 
 
 def encode_loop(image_rgb: np.ndarray, config: cfg.CodecConfig, device) -> bytes:

@@ -31,6 +31,8 @@ from roibasedimagecompression_torch.ops.colors import fma32
 from roibasedimagecompression_torch.ops.cuda import epscc as EPS
 from roibasedimagecompression_torch.parallel import shard as SHARD
 from roibasedimagecompression_torch.utils import dispatch as DISPATCH
+from roibasedimagecompression_torch.utils import timing
+from roibasedimagecompression_torch.utils.timing import stage_timer
 
 _BIG = 3.4e38
 _MAX_D2 = 3 * 255 * 255  # the largest squared distance of two uint8 colours
@@ -66,12 +68,14 @@ def eps_components(points, eps, valid, groups=None) -> torch.Tensor:
 @functools.lru_cache(maxsize=8)
 def _gumbel_table(seed: int, m: int, n_draws: int) -> np.ndarray:
     """(n_draws, m) float32 Gumbel noise of the k-means++ draws: row 0 is the
-    first centre's draw, row i the i-th step's (key, sub = split(key) each)."""
-    key = prng.prng_key(seed)
-    out = np.empty((n_draws, m), np.float32)
-    for i in range(n_draws):
-        key, sub = prng.split(key)
-        out[i] = prng.gumbel(sub, (m,))
+    first centre's draw, row i the i-th step's (key, sub = split(key) each).
+    A cache miss draws on the host inside the span `kmeans.noise`."""
+    with stage_timer("kmeans.noise"):
+        key = prng.prng_key(seed)
+        out = np.empty((n_draws, m), np.float32)
+        for i in range(n_draws):
+            key, sub = prng.split(key)
+            out[i] = prng.gumbel(sub, (m,))
     out.setflags(write=False)
     return out
 
@@ -251,6 +255,10 @@ def kmeans_rows(
     weights (B, m) float32, when given: the k-means++ draws go in proportion
     to w * d^2 (the first in proportion to w) and the centres are weighted
     means; the assignment is unchanged.
+
+    Traced as the spans `kmeans.seed` (the initial centres) and
+    `kmeans.lloyd` (the loop and the last assignment), and the counter
+    `kmeans_iters` (Lloyd iterations run, `utils/timing.py`).
     """
     b, m, _ = points.shape
     dev = points.device
@@ -265,52 +273,54 @@ def kmeans_rows(
         w_pts = torch.where(valid, weights.to(device=dev, dtype=torch.float32),
                             torch.zeros((), device=dev))
 
-    if init_centers is not None:
-        centers = init_centers.to(device=dev, dtype=torch.float32)
-    elif plusplus:
-        n_draws = max(int(kvec.max()), 1)
-        # Squared distances of integer colours are integers <= _MAX_D2, and
-        # adding 1e-20 to one of them leaves it as it is.
-        log_d2 = _log32_table(dev)
-        noise = torch.tensor(_gumbel_table(int(seed), m, n_draws), device=dev)
-        if w_pts is None:
-            first_logits = torch.where(valid, torch.zeros((), device=dev), neg_inf)
-        else:
-            pos = valid & (w_pts > 0)
-            w_log = prng.log32(torch.where(pos, w_pts + 1e-20, torch.ones((), device=dev)))
-            first_logits = torch.where(pos, w_log, neg_inf)
-        first = torch.argmax(noise[0][None, :] + first_logits, dim=1)
-        centers = torch.zeros((b, k_max, 3), dtype=torch.float32, device=dev)
-        centers[:, 0] = points[rows, first]
-        min_d2 = ((points - points[rows, first][:, None, :]) ** 2).sum(dim=2)
-        min_d2 = torch.where(valid, min_d2, torch.zeros((), device=dev))
-        for i in range(1, n_draws):
-            g = noise[i]
+    with stage_timer("kmeans.seed"):
+        if init_centers is not None:
+            centers = init_centers.to(device=dev, dtype=torch.float32)
+        elif plusplus:
+            n_draws = max(int(kvec.max()), 1)
+            # Squared distances of integer colours are integers <= _MAX_D2, and
+            # adding 1e-20 to one of them leaves it as it is.
+            log_d2 = _log32_table(dev)
+            noise = torch.tensor(_gumbel_table(int(seed), m, n_draws), device=dev)
             if w_pts is None:
-                logits = torch.where(valid & (min_d2 > 0), log_d2[min_d2.long()], neg_inf)
+                first_logits = torch.where(valid, torch.zeros((), device=dev), neg_inf)
             else:
-                mass = min_d2 * w_pts
-                live = valid & (mass > 0)
-                mass = torch.where(live, _fma_tiny(min_d2, w_pts, 1e-20), torch.ones((), device=dev))
-                logits = torch.where(live, prng.log32(mass), neg_inf)
-            has = torch.isfinite(logits).any(dim=1, keepdim=True)
-            logits = torch.where(
-                has, logits, torch.where(valid, torch.zeros((), device=dev), neg_inf)
+                pos = valid & (w_pts > 0)
+                w_log = prng.log32(torch.where(pos, w_pts + 1e-20, torch.ones((), device=dev)))
+                first_logits = torch.where(pos, w_log, neg_inf)
+            first = torch.argmax(noise[0][None, :] + first_logits, dim=1)
+            centers = torch.zeros((b, k_max, 3), dtype=torch.float32, device=dev)
+            centers[:, 0] = points[rows, first]
+            min_d2 = ((points - points[rows, first][:, None, :]) ** 2).sum(dim=2)
+            min_d2 = torch.where(valid, min_d2, torch.zeros((), device=dev))
+            for i in range(1, n_draws):
+                g = noise[i]
+                if w_pts is None:
+                    logits = torch.where(valid & (min_d2 > 0), log_d2[min_d2.long()], neg_inf)
+                else:
+                    mass = min_d2 * w_pts
+                    live = valid & (mass > 0)
+                    mass = torch.where(live, _fma_tiny(min_d2, w_pts, 1e-20),
+                                       torch.ones((), device=dev))
+                    logits = torch.where(live, prng.log32(mass), neg_inf)
+                has = torch.isfinite(logits).any(dim=1, keepdim=True)
+                logits = torch.where(
+                    has, logits, torch.where(valid, torch.zeros((), device=dev), neg_inf)
+                )
+                idx = torch.argmax(g[None, :] + logits, dim=1)
+                new_center = points[rows, idx]
+                active = (i < k)[:, None]
+                centers[:, i] = torch.where(active, new_center, centers[:, i])
+                d2_new = ((points - new_center[:, None, :]) ** 2).sum(dim=2)
+                min_d2 = torch.where(active, torch.minimum(min_d2, d2_new), min_d2)
+        else:
+            u = torch.from_numpy(prng.uniform(key, (m,))).to(dev)
+            scores = u[None, :] + torch.where(
+                valid, torch.zeros((), device=dev), torch.full((), 2.0, device=dev)
             )
-            idx = torch.argmax(g[None, :] + logits, dim=1)
-            new_center = points[rows, idx]
-            active = (i < k)[:, None]
-            centers[:, i] = torch.where(active, new_center, centers[:, i])
-            d2_new = ((points - new_center[:, None, :]) ** 2).sum(dim=2)
-            min_d2 = torch.where(active, torch.minimum(min_d2, d2_new), min_d2)
-    else:
-        u = torch.from_numpy(prng.uniform(key, (m,))).to(dev)
-        scores = u[None, :] + torch.where(
-            valid, torch.zeros((), device=dev), torch.full((), 2.0, device=dev)
-        )
-        order = torch.sort(scores, dim=1, stable=True).indices
-        take = order[:, torch.arange(k_max, device=dev) % m]
-        centers = points[rows[:, None], take]
+            order = torch.sort(scores, dim=1, stable=True).indices
+            take = order[:, torch.arange(k_max, device=dev) % m]
+            centers = points[rows[:, None], take]
 
     chunk = max(1, (1 << 23) // max(1, b * k_max))
 
@@ -340,15 +350,20 @@ def kmeans_rows(
         new = sums / torch.clamp(counts, min=1.0)[..., None]
         return torch.where(counts[..., None] > 0, new, c)
 
-    prev = torch.full((b, m), -1, dtype=torch.int64, device=dev)
-    for _ in range(iters):
-        labels = assign(centers)
-        centers = update(labels, centers)
-        changed = bool((labels != prev).any())
-        prev = labels
-        if not changed:
-            break
-    return assign(centers).int()
+    with stage_timer("kmeans.lloyd"):
+        prev = torch.full((b, m), -1, dtype=torch.int64, device=dev)
+        run = 0
+        for _ in range(iters):
+            labels = assign(centers)
+            centers = update(labels, centers)
+            changed = bool((labels != prev).any())
+            prev = labels
+            run += 1
+            if not changed:
+                break
+        out = assign(centers).int()
+    timing.count("kmeans_iters", run)
+    return out
 
 
 def _bucket(n: int, minimum: int = 8) -> int:

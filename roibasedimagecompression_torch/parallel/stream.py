@@ -42,6 +42,7 @@ from roibasedimagecompression_torch.ops import canny as CANNY
 from roibasedimagecompression_torch.ops import pairs as PAIRS
 from roibasedimagecompression_torch.parallel import shard as SHARD
 from roibasedimagecompression_torch.utils import device as DEV
+from roibasedimagecompression_torch.utils import timing
 from roibasedimagecompression_torch.utils.timing import stage_timer
 
 # One process-wide container-packing pool serves every encode_many: per-call
@@ -87,7 +88,8 @@ def encode_many(
     try:
         if _start_gate is not None:
             _start_gate.wait()
-        return _encode_many_inner(images, config, _mesh_device(device, mesh), _frontend_done, mesh)
+        with timing.request("encode_many"):
+            return _encode_many_inner(images, config, _mesh_device(device, mesh), _frontend_done, mesh)
     finally:
         # Always unblock the successor, even on failure mid-frontend.
         if _frontend_done is not None:
@@ -225,10 +227,11 @@ def _encode_many_inner(images: list, config: cfg.CodecConfig, device,
     # 5. Container packing in the shared thread pool.
     def finish(k: int) -> bytes:
         palette, indices = pal_idx[k]
-        return container.pack(palette, indices, level=config.container_level)
+        with stage_timer("container.pack"):
+            return container.pack(palette, indices, level=config.container_level)
 
     with stage_timer("s.container"):
-        return list(_io_pool().map(finish, range(b)))
+        return list(_io_pool().map(timing.carry(finish), range(b)))
 
 
 def _finish_canvas_path(table, tall_seg, seg_group, batch, config, device, mesh=None) -> list:
@@ -247,10 +250,11 @@ def _finish_canvas_path(table, tall_seg, seg_group, batch, config, device, mesh=
     def finish(k: int) -> bytes:
         palette, indices = CODEC.canvas_palette_indices(t3_list[k], t1_list[k], config, device)
         palette = REFINE.maybe_refit(batch[k], palette, indices, config)
-        return container.pack(palette, indices, level=config.container_level)
+        with stage_timer("container.pack"):
+            return container.pack(palette, indices, level=config.container_level)
 
     with stage_timer("s.container"):
-        return list(_io_pool().map(finish, range(b)))
+        return list(_io_pool().map(timing.carry(finish), range(b)))
 
 
 def encode_stream(batches: list, config: cfg.CodecConfig | None = None,
@@ -277,7 +281,11 @@ def encode_stream(batches: list, config: cfg.CodecConfig | None = None,
     Returns a list of per-batch result lists, in input order.
     """
     config = config or cfg.CodecConfig()
-    dev = _mesh_device(device, mesh)
+    with timing.request("encode_stream"):
+        return _encode_stream_inner(batches, config, workers, _mesh_device(device, mesh), mesh)
+
+
+def _encode_stream_inner(batches: list, config: cfg.CodecConfig, workers: int, dev, mesh) -> list:
     if workers <= 1 or len(batches) <= 1:
         return [encode_many(b, config, dev, mesh=mesh) for b in batches]
     gates = [threading.Event() for _ in range(len(batches) + 1)]
@@ -305,4 +313,4 @@ def encode_stream(batches: list, config: cfg.CodecConfig | None = None,
                 s.synchronize()
 
     with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as pool:
-        return list(pool.map(run, range(len(batches))))
+        return list(pool.map(timing.carry(run), range(len(batches))))

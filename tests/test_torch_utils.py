@@ -5,6 +5,7 @@ tests where they carry over ("warm" meaning: run inline)."""
 
 import json
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -13,7 +14,7 @@ import torch
 from roibasedimagecompression_torch import config as tcfg
 from roibasedimagecompression_torch.models import pipeline_jit as TPJ
 from roibasedimagecompression_torch.parallel import stream as TSTREAM
-from roibasedimagecompression_torch.utils import cachekey, dispatch, flops, profiling, warmup
+from roibasedimagecompression_torch.utils import cachekey, dispatch, flops, profiling, timing, warmup
 from roibasedimagecompression_torch.utils.synthetic import synthetic_image
 
 
@@ -171,10 +172,23 @@ def test_source_fingerprint_and_freshness():
 def test_device_trace_writes_a_trace(tmp_path):
     with profiling.device_trace(str(tmp_path)) as prof:
         with profiling.annotate("work"):
-            torch.ones(64, 64).matmul(torch.ones(64, 64))
+            with timing.stage_timer("stage.work"):
+                torch.ones(64, 64).matmul(torch.ones(64, 64))
+                with timing.stage_timer("stage.inner"):
+                    pass
     assert os.path.exists(prof.trace_path)
     trace = json.load(open(prof.trace_path))
     assert any(ev.get("name") == "work" for ev in trace["traceEvents"])
+    # The program's span, on the trace's clock: it contains the matmul.
+    (span,) = [ev for ev in trace["traceEvents"] if ev.get("name") == "stage.work"]
+    assert span["cat"] == "stage" and span["tid"] == threading.get_native_id()
+    (mm,) = [ev for ev in trace["traceEvents"] if ev.get("name") == "aten::matmul"]
+    assert span["ts"] - 1e3 <= mm["ts"] and mm["ts"] + mm["dur"] <= span["ts"] + span["dur"] + 1e3
+    # Parents are indices among the written spans.
+    (inner,) = [ev for ev in trace["traceEvents"] if ev.get("name") == "stage.inner"]
+    assert span["args"]["parent"] is None and inner["args"]["parent"] == span["args"]["id"]
+    assert timing.record(False) is False  # recording is off again after the block
+    assert timing.spans() == []  # and the block's spans are not kept
 
 
 # --------------------------------------------------------------------- flops
