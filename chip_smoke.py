@@ -6,8 +6,9 @@
 Phases, in order; any failed check exits non-zero:
   1. environment: card name and power limit, torch and CUDA versions, TF32
      switches, the libdeflate the container loads;
-  2. build: the native host runtime (g++) and both CUDA kernels (one nvcc
-     per source, started together), with the seconds each took;
+  2. build: the native host runtime (g++) and the three CUDA kernel
+     sources (one nvcc per source, started together), with the seconds each
+     took;
   3. kernel 1 (SLIC assign), in both its forms (the expanded form of the
      JAX package's default and the direct form of its Pallas kernel), against
      its plain version at the (B, MP, K) the paths below launch (the batch
@@ -17,7 +18,12 @@ Phases, in order; any failed check exits non-zero:
      (an id may differ only where the two candidates' distances are within
      one ulp: the plain version emulates the fused multiply-add in float64);
      and the k-means++ logarithm `log32` on the card against the CPU, bit for
-     bit;
+     bit; then kernel 3 (the k-means++ Gumbel noise) against its plain
+     version, the host table `_gumbel_table`, bit for bit, at the (n_draws,
+     m) the cells draw most, (256, 16384) and (64, 65536), at a short row
+     and at tails of a block's tile, timed by CUDA events (launches queued
+     behind a sleep, so the host's launch rate is not timed) against its
+     integer-instruction bound;
   4. kernel 2 (eps sweep) against its plain version, and the loop kernel
      against the plain loop and the host union-find, at the bucket shapes
      (B, N) = (64, 1024), (16, 4096), (4, 10240): labels must be equal.  It
@@ -31,7 +37,7 @@ Phases, in order; any failed check exits non-zero:
      kernels alone, beside the host-clock time of a whole call of the loop;
   5. one image at a time: encode + decode of 2 synthetic 768x512 images
      (Kodak's shape) through the public `encode`/`decode` on the card, with
-     both kernels' launch counts and launch shapes read around that run;
+     every kernel's launch counts and launch shapes read around that run;
      checks shape, PSNR > 28 dB, and agreement with the port's own CPU
      encode; then the same encodes once more inside a profiler window, for
      the share of the window in which the card ran nothing;
@@ -116,10 +122,10 @@ Phases, in order; any failed check exits non-zero:
      kmeans-mc and --enhance-shadows, and phase 12's child without the
      runtime), counts read around each, each held by its digest; and the
      PSNR and SSIM of the batch's 8 decodes on the card against the file's;
- 16. cover: every (form, B, MP, K) and (B, N) that phases 5 and 7-15
-     launched and phases 3 and 4 did not check is checked against the
-     plain version now, so no path runs a kernel at a shape the run has not
-     held;
+ 16. cover: every (form, B, MP, K), (B, N) and Gumbel (seed, n_draws, m)
+     that phases 5 and 7-15 launched and phases 3 and 4 did not check is
+     checked against the plain version now, so no path runs a kernel at a
+     shape the run has not held;
  17. the parity line {"parity": {"rows": n, "equal": e, "open": [...]}}, one
      JSON line of kernel measurements, then the card line, then the final
      {"ok": true, ...} line.
@@ -147,6 +153,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # tensor cores, and HBM bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# Integer instruction rate: 64 INT32 lanes a SM x 132 SMs x 1.98 GHz (kernel 3's bound).
+PEAK_INT32_OPS = 64 * 132 * 1.98e9
 
 
 def fail(msg: str) -> None:
@@ -208,7 +216,7 @@ EPS_PACKED_SHAPES = ((7, 9999), (26, 1024), (1, 64), (48, 9999), (17, 4096), (12
 
 # Every shape a path launched a kernel at (read_counts adds to it); kernel 1's
 # as (form, B, MP, K).
-launched_shapes = {"slic_assign": set(), "eps_components": set()}
+launched_shapes = {"slic_assign": set(), "eps_components": set(), "gumbel": set()}
 SLIC_FORMS = ("expanded", "direct")
 
 
@@ -313,6 +321,63 @@ def check_log32(device, n=1 << 20):
     n_diff = int((got.view(np.int32) != want.view(np.int32)).sum())
     check(n_diff == 0, f"log32 on the card differs from the CPU in {n_diff} of {len(x)} values")
     return len(x)
+
+
+# (n_draws, m) kernel 3 is checked at before the paths run: PERF.md's
+# reference sizes (the widest k-means++ draw, 256 centres, on a 16384-colour
+# row, and 64 centres on a 65536-colour row; 4.2 M elements each), a short
+# table, and widths that end inside a block's tile.  The cover phase checks
+# every (seed, n_draws, m) a path drew beyond these.
+GUMBEL_SHAPES = ((256, 16_384), (64, 65_536), (16, 16_384), (3, 1000), (1, 8))
+GUMBEL_SEED = 42  # CodecConfig's k-means seed
+
+
+def time_queued_ms(fn, reps: int = 100) -> float:
+    """Mean card milliseconds per call of `fn` over `reps` calls launched
+    behind a sleep kernel, by CUDA events: the card runs the calls back to
+    back, so a kernel shorter than its launch's host time is timed alone."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # about 50 ms: longer than queueing `reps` launches
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_gumbel(device, seed, n, m, timed=True):
+    """Kernel 3 at (n_draws, m) against its plain version, the host table,
+    bit for bit; with `timed`, its card time and the host table's."""
+    import numpy as np
+
+    from roibasedimagecompression_torch.ops import cluster as TCL
+    from roibasedimagecompression_torch.ops.cuda import gumbel as GUMBEL
+
+    got = GUMBEL.gumbel_table(seed, m, n, device).cpu().numpy()
+    TCL._gumbel_table.cache_clear()
+    t0 = time.perf_counter()
+    want = TCL._gumbel_table(seed, m, n)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    TCL._gumbel_table.cache_clear()
+    n_diff = int((got.view(np.int32) != want.view(np.int32)).sum())
+    check(n_diff == 0, f"the Gumbel kernel differs from the host table in {n_diff} of {n * m} "
+                       f"elements at seed {seed}, (n_draws, m) = ({n}, {m})")
+    # About 82 integer operations an element (threefry's 20 rounds and 5
+    # injections, the mantissa trick, two exponent extractions, the index);
+    # 4 bytes written an element and 8 read a row.
+    t_ops = 82.0 * n * m / PEAK_INT32_OPS * 1e3
+    t_bytes = (4.0 * n * m + 8 * n) / PEAK_BYTES * 1e3
+    rec = {"shape": [n, m], "seed": seed, "bits_differing": n_diff, "plain_ms": plain_ms,
+           "bound_ms": max(t_ops, t_bytes), "bound_by": "integer operations" if t_ops >= t_bytes else "bytes"}
+    if timed and device.type == "cuda":
+        rec["ms"] = time_queued_ms(lambda: GUMBEL.gumbel_table(seed, m, n, device))
+    return rec
 
 
 def eps_inputs(device, b, n, seed=0):
@@ -598,29 +663,35 @@ def seg_agreement(img, config, device_a, device_b) -> float:
 def reset_counts() -> None:
     """Set every kernel's launch count to 0: called just before a path runs."""
     from roibasedimagecompression_torch.ops.cuda import epscc as EPS
+    from roibasedimagecompression_torch.ops.cuda import gumbel as GUMBEL
     from roibasedimagecompression_torch.ops.cuda import slic_assign as SA
     from roibasedimagecompression_torch.utils import timing
 
     timing.reset_stages()
-    SA.launches = EPS.launches = EPS.sweep_launches = EPS.rounds = 0
+    SA.launches = EPS.launches = EPS.sweep_launches = EPS.rounds = GUMBEL.launches = 0
     SA.launches_by_form.clear()
     SA.launch_shapes.clear()
     EPS.loop_shapes.clear()
+    GUMBEL.launch_shapes.clear()
 
 
 def read_counts():
     """(launch counts, launch-shape histograms) since reset_counts."""
     from roibasedimagecompression_torch.ops.cuda import epscc as EPS
+    from roibasedimagecompression_torch.ops.cuda import gumbel as GUMBEL
     from roibasedimagecompression_torch.ops.cuda import slic_assign as SA
 
     launched_shapes["slic_assign"].update(SA.launch_shapes)
     launched_shapes["eps_components"].update(EPS.loop_shapes)
+    launched_shapes["gumbel"].update(GUMBEL.launch_shapes)
     launches = {"slic_assign": SA.launches, "slic_assign_expanded": SA.launches_by_form["expanded"],
                 "slic_assign_direct": SA.launches_by_form["direct"], "eps_components": EPS.launches,
-                "eps_sweep_alone": EPS.sweep_launches, "eps_rounds": EPS.rounds}
+                "eps_sweep_alone": EPS.sweep_launches, "eps_rounds": EPS.rounds,
+                "gumbel": GUMBEL.launches}
     shapes = {
         "slic_assign (form, B, MP, K)": {str(k): v for k, v in sorted(SA.launch_shapes.items())},
         "eps loop (B, N)": {str(k): v for k, v in sorted(EPS.loop_shapes.items())},
+        "gumbel (seed, n_draws, m)": {str(k): v for k, v in sorted(GUMBEL.launch_shapes.items())},
     }
     return launches, shapes
 
@@ -1658,6 +1729,11 @@ def main() -> int:
               f"plain {r['plain_ms']:.3f} ms, {library} {r['library_ms']:.3f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
     print(f"[log32] {check_log32(device)} values: the card's log32 equals the CPU's bit for bit")
+    k3 = [check_gumbel(device, GUMBEL_SEED, n, m) for n, m in GUMBEL_SHAPES]
+    for r in k3:
+        print(f"[gumbel] seed {r['seed']}, (n_draws, m) = {tuple(r['shape'])}: bits equal the host table; "
+              f"kernel {r['ms']:.4f} ms (queued), host table {r['plain_ms']:.1f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
 
     print(f"[time] phase 3 ended at {time.perf_counter() - t_script:.1f} s")
     # -- 4. kernel 2 -------------------------------------------------------------
@@ -1690,7 +1766,7 @@ def main() -> int:
     print(f"[time] phase 4 ended at {time.perf_counter() - t_script:.1f} s")
     # -- 5. one image at a time ---------------------------------------------------
     results, launches_one, shapes, stages, idle, images_one, datas_one = run_end_to_end(device)
-    for name in ("slic_assign_expanded", "eps_components", "eps_rounds"):
+    for name in ("slic_assign_expanded", "eps_components", "eps_rounds", "gumbel"):
         check(launches_one[name] > 0, f"the one-image path launched {name} no time")
     print(f"[e2e] launches over {len(results)} encodes: {launches_one}")
     for name, hist in shapes.items():
@@ -1722,7 +1798,7 @@ def main() -> int:
     runs = {}
     for label, config in (("default", cfg.CodecConfig()), ("low_latency", cfg.CodecConfig.low_latency())):
         br = runs[label] = run_batch(device, batches[0], config, profile=label == "default")
-        for name in ("slic_assign_expanded", "eps_components", "eps_rounds"):
+        for name in ("slic_assign_expanded", "eps_components", "eps_rounds", "gumbel"):
             check(br["launches"][name] > 0, f"the batch path ({label}) launched {name} no time")
         print(f"[batch {label}] encode_many of 8 x 768x512: {br['seconds']:.3f} s warm, "
               f"{br['images_per_second']:.3f} images/s; bytes equal with RHCCQ_DEVICE_PAIRS=0 [{card}]")
@@ -1743,7 +1819,7 @@ def main() -> int:
     # its thread's CUDA streams.  No profiler window here: phase 7 measures
     # the idle share, and a traced stream took two minutes of the script.
     sr = run_stream(device, batches, runs["default"]["datas"])
-    for name in ("slic_assign", "eps_components", "eps_rounds"):
+    for name in ("slic_assign", "eps_components", "eps_rounds", "gumbel"):
         check(sr["launches"][name] > 0, f"the stream path launched {name} no time")
     print(f"[stream] encode_stream of {len(batches)} batches of 8, workers=2: equal to sequential encode_many byte "
           f"for byte; {sr['seconds']:.3f} s, {sr['images_per_second']:.3f} images/s "
@@ -1774,7 +1850,7 @@ def main() -> int:
     print(f"[cli] phase seconds: {t_cli:.1f}")
     launches_cli = {name: sum(rec["launches"][name] for rec in cr["options"].values())
                     for name in ("slic_assign", "slic_assign_expanded", "slic_assign_direct",
-                                 "eps_components", "eps_sweep_alone", "eps_rounds")}
+                                 "eps_components", "eps_sweep_alone", "eps_rounds", "gumbel")}
 
     print(f"[time] phase 9 ended at {time.perf_counter() - t_script:.1f} s")
     # -- 10. canvas -----------------------------------------------------------------
@@ -1949,6 +2025,13 @@ def main() -> int:
     for r in check_eps_packed(device, more_eps, count_calls=False):  # phase 4 counted one call's kernels
         report_loop(r)
         k2_packed.append(r)
+    t_cover = time.perf_counter()
+    more_gumbel = sorted(launched_shapes["gumbel"] - {(r["seed"], *r["shape"]) for r in k3})
+    k3 += [check_gumbel(device, seed, n, m, timed=False) for seed, n, m in more_gumbel]
+    print(f"[cover] the Gumbel kernel also checked at (seed, n_draws, m) {more_gumbel}: bits equal "
+          f"the host table ({time.perf_counter() - t_cover:.1f} s of host tables)")
+    for r in k3:
+        r["on_path"] = (r["seed"], *r["shape"]) in launched_shapes["gumbel"]
     for r in k1:
         r["on_path"] = slic_key(r) in launched_shapes["slic_assign"]
     for r in k2_packed:
@@ -2042,6 +2125,19 @@ def main() -> int:
                         + [{k: r[k] for k in ("shape", "entry", "on_path", "sweeps", "components", "driver_ms",
                                               "loop_event_ms", "plain_driver_ms", "bound_ms")}
                            for r in k2_packed]},
+        # Kernel 3 has no Pallas counterpart: the JAX package draws this
+        # noise in XLA inside its jitted k-means.  Its headline is the
+        # reference size (256, 16384); `on_path` in `per_shape` marks the
+        # tables the paths drew.  `ms` is queued card time (time_queued_ms),
+        # `plain_ms` one host table's draw.
+        {"name": "gumbel", "route": "cuda",
+         "source": "roibasedimagecompression_torch/csrc/gumbel.cu",
+         "replaces": "roibasedimagecompression_tpu/ops/cluster.py:203,216 (jax.random.categorical's Gumbel draw, in XLA)"}
+        | launches_of("gumbel")
+        | {"max_abs_err": 0.0, "shape": k3[0]["shape"], "ms": k3[0]["ms"], "plain_ms": k3[0]["plain_ms"],
+           "bound_ms": k3[0]["bound_ms"], "bound_by": k3[0]["bound_by"], "library_ms": None,
+           "per_shape": [{k: r.get(k) for k in ("seed", "shape", "on_path", "ms", "plain_ms", "bound_ms")}
+                         for r in k3]},
     ]
     print(parity_line)
     print(json.dumps({"kernels": kernels}))

@@ -20,7 +20,7 @@ import time
 
 
 def _prewarm_async(device):
-    """Start building `_build/` (both kernels and the native runtime) on a
+    """Start building `_build/` (the kernels and the native runtime) on a
     thread while the encode reads its input: the port's one first-use cost
     (`utils/warmup.py`).  CUDA only; RHCCQ_NO_PREWARM skips it.  Returns the
     future, or None; a failed build raises from it, and the encode that

@@ -5,8 +5,10 @@ components of the eps-threshold graph; `eps_components` is the plain driver
 over the plain sweep (the CUDA path runs the same driver over the kernel,
 ops/cuda/epscc.py).  k-means reproduces the JAX package's `ops/cluster.kmeans`:
 k-means++ (or seeded random) initial centres drawn with JAX's threefry bits
-(ops/prng.py), the expanded |a|^2 + |b|^2 - 2ab distance with XLA's fused
-multiply-adds, first-index argmin and early-exit Lloyd.
+(ops/prng.py; the k-means++ noise on a CUDA device by the kernel of
+ops/cuda/gumbel.py, elsewhere by `_gumbel_table` on the host), the expanded
+|a|^2 + |b|^2 - 2ab distance with XLA's fused multiply-adds, first-index
+argmin and early-exit Lloyd.
 
 With per-point weights (the weighted oversized split, pixel counts) the
 k-means++ draws go in proportion to w * d^2 and the centres are weighted
@@ -29,6 +31,7 @@ from roibasedimagecompression_torch.ops import prng
 from roibasedimagecompression_torch.ops import xla_order as XO
 from roibasedimagecompression_torch.ops.colors import fma32
 from roibasedimagecompression_torch.ops.cuda import epscc as EPS
+from roibasedimagecompression_torch.ops.cuda import gumbel as GUMBEL
 from roibasedimagecompression_torch.parallel import shard as SHARD
 from roibasedimagecompression_torch.utils import dispatch as DISPATCH
 from roibasedimagecompression_torch.utils import timing
@@ -68,16 +71,29 @@ def eps_components(points, eps, valid, groups=None) -> torch.Tensor:
 @functools.lru_cache(maxsize=8)
 def _gumbel_table(seed: int, m: int, n_draws: int) -> np.ndarray:
     """(n_draws, m) float32 Gumbel noise of the k-means++ draws: row 0 is the
-    first centre's draw, row i the i-th step's (key, sub = split(key) each).
-    A cache miss draws on the host inside the span `kmeans.noise`."""
+    first centre's draw, row i the i-th step's (key, sub = split(key) each,
+    `prng.subkey_chain`).  A cache miss draws on the host inside the span
+    `kmeans.noise`.  The plain version of the card's kernel
+    (`ops/cuda/gumbel.py`)."""
     with stage_timer("kmeans.noise"):
-        key = prng.prng_key(seed)
         out = np.empty((n_draws, m), np.float32)
-        for i in range(n_draws):
-            key, sub = prng.split(key)
+        for i, sub in enumerate(prng.subkey_chain(seed, n_draws)):
             out[i] = prng.gumbel(sub, (m,))
     out.setflags(write=False)
     return out
+
+
+def _kmeans_noise(seed: int, m: int, n_draws: int, dev: torch.device) -> torch.Tensor:
+    """`_gumbel_table(seed, m, n_draws)` on `dev`: on a CUDA device drawn there
+    by the kernel (`ops/cuda/gumbel.py`, the same bits) inside the span
+    `kmeans.noise`, counted as `kmeans_noise.card`; elsewhere the host table,
+    counted as `kmeans_noise.host`."""
+    if dev.type == "cuda":
+        timing.count("kmeans_noise.card", 1)
+        with stage_timer("kmeans.noise"):
+            return GUMBEL.gumbel_table(seed, m, n_draws, dev)
+    timing.count("kmeans_noise.host", 1)
+    return torch.tensor(_gumbel_table(seed, m, n_draws), device=dev)
 
 
 def _sq_dists(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -257,8 +273,10 @@ def kmeans_rows(
     means; the assignment is unchanged.
 
     Traced as the spans `kmeans.seed` (the initial centres) and
-    `kmeans.lloyd` (the loop and the last assignment), and the counter
-    `kmeans_iters` (Lloyd iterations run, `utils/timing.py`).
+    `kmeans.lloyd` (the loop and the last assignment), and the counters
+    `kmeans_iters` (Lloyd iterations run) and `kmeans_noise.card` /
+    `kmeans_noise.host` (one per k-means++ seeding, by where its noise was
+    drawn; `utils/timing.py`).
     """
     b, m, _ = points.shape
     dev = points.device
@@ -281,7 +299,7 @@ def kmeans_rows(
             # Squared distances of integer colours are integers <= _MAX_D2, and
             # adding 1e-20 to one of them leaves it as it is.
             log_d2 = _log32_table(dev)
-            noise = torch.tensor(_gumbel_table(int(seed), m, n_draws), device=dev)
+            noise = _kmeans_noise(int(seed), m, n_draws, dev)
             if w_pts is None:
                 first_logits = torch.where(valid, torch.zeros((), device=dev), neg_inf)
             else:

@@ -62,6 +62,16 @@ def split(key: np.ndarray, num: int = 2) -> np.ndarray:
     return np.stack([a, b], axis=1)
 
 
+def subkey_chain(seed: int, n: int) -> np.ndarray:
+    """(n, 2) uint32: row i is the sub-key of the i-th step of `key, sub =
+    split(key)` from PRNGKey(seed), the key of the i-th k-means++ draw."""
+    key = prng_key(seed)
+    out = np.empty((n, 2), np.uint32)
+    for i in range(n):
+        key, out[i] = split(key)
+    return out
+
+
 def random_bits(key: np.ndarray, shape) -> np.ndarray:
     """32-bit random bits of `shape` (partitionable threefry)."""
     n = int(np.prod(shape))

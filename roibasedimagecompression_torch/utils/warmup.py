@@ -4,7 +4,7 @@ manifest.
 The counterpart of the JAX package's `utils/warmup.py`, whose first-use cost
 is a wave of XLA compiles and whose manifest (`warm_manifest.json`) replays
 them in parallel.  The port's first-use cost is building its libraries: the
-two CUDA kernels (nvcc, `ops/cuda/_build.py`) and the native host runtime
+CUDA kernels (nvcc, `ops/cuda/_build.py`) and the native host runtime
 (g++).  So:
 
   1. RECORD: with RHCCQ_RECORD_MANIFEST set (or `enable_recording()`), every
@@ -172,7 +172,7 @@ def source_fingerprint() -> str:
 
 def check_pack_freshness(log=print) -> bool:
     """Whether `_build/` holds the libraries of the current sources: the
-    native runtime (unless RHCCQ_NATIVE=0) and both kernel libraries under
+    native runtime (unless RHCCQ_NATIVE=0) and every kernel library under
     the current nvcc's build keys.  Logs what is missing."""
     from roibasedimagecompression_torch import native
     from roibasedimagecompression_torch.ops.cuda import _build as KB

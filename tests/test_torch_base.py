@@ -273,6 +273,21 @@ def test_prng_bit_exact(seed):
     )
 
 
+@pytest.mark.parametrize("seed", [0, 42, 4294967295])
+def test_gumbel_table_is_jax_noise_of_the_split_chain(seed):
+    """The k-means++ noise table (the plain version of the card's kernel) is
+    the JAX package's draw: row i is jax.random.gumbel under the i-th sub-key
+    of `key, sub = split(key)`."""
+    from roibasedimagecompression_torch.ops import cluster as TCL
+
+    key = jax.random.PRNGKey(seed)
+    got = TCL._gumbel_table(seed, 1000, 6)
+    for i in range(6):
+        key, sub = jax.random.split(key)
+        want = np.asarray(jax.random.gumbel(sub, (1000,)))
+        np.testing.assert_array_equal(got[i].view(np.int32), want.view(np.int32))
+
+
 def test_prng_categorical_matches_jax(rng):
     for t in range(60):
         logits = np.log(rng.random(2048).astype(np.float32) * 1000.0 + 1e-20).astype(np.float32)

@@ -27,6 +27,8 @@ from roibasedimagecompression_torch.ops import cluster as TCL
 from roibasedimagecompression_torch.parallel import stream as TSTREAM
 from roibasedimagecompression_torch.utils.synthetic import synthetic_image
 
+from kmeans_cases import WEIGHTED_ROWS_CASES, weighted_problem
+
 
 @pytest.fixture(autouse=True, scope="module")
 def one_thread():
@@ -82,37 +84,14 @@ def test_region_fusion_passes_match_jax(seed):
                       [dataclasses.replace(r, kind="nonroi") for r in jregions], img.shape, "nonroi"))
 
 
-def _weighted_problem(rng, b, m, n_valid, w_max):
-    """Seeded rows of colours around a few centres and integer weights below
-    w_max; w_max = (w, share): that share of the points weighs 65,794 to
-    400,000 (its products pass 2^24)."""
-    pts = np.clip(rng.integers(0, 4, (b, 1, 3)) * 64 + rng.integers(-40, 41, (b, m, 3)), 0, 255)
-    pts = pts.astype(np.float32)
-    valid = np.arange(m)[None, :] < np.asarray(n_valid)[:, None]
-    pts[~valid] = 0.0
-    heavy = 0.0
-    if isinstance(w_max, tuple):
-        w_max, heavy = w_max
-    w = rng.integers(1, w_max, (b, m))
-    w = np.where(rng.random((b, m)) < heavy, rng.integers(2**24 // 255 + 1, 400_000, (b, m)), w)
-    return pts, valid, w.astype(np.float32) * valid
-
-
-@pytest.mark.parametrize("ks,k_max,m,w_max", [
-    ((5, 9, 2), 16, 64, 300),        # exact sums
-    ((5, 9, 2), 16, 256, 400_000),   # sums beyond 2^24, products beyond 2^24: XLA's naive dot
-    ((7, 30, 3), 32, 4096, 60_000),  # sums beyond 2^24 over 2048-point chunks: Eigen's order
-    ((3, 40, 2), 64, 1024, 300),     # exact sums at the 1024 cap
-    ((3, 5, 4), 16, 1024, 723),      # a full-size row: 1024 points of ~370k pixels, sums beyond 2^24
-    ((5, 9, 2), 16, 4096, (2000, 0.005)),  # products beyond 2^24 at 2048-point chunks
-])
+@pytest.mark.parametrize("ks,k_max,m,w_max", WEIGHTED_ROWS_CASES)
 def test_weighted_kmeans_rows_match_jax(ks, k_max, m, w_max):
     """Weighted k-means (++ draws in proportion to w * d^2 with XLA's fused
     `d2 * w + 1e-20`, weighted centre sums in XLA's order) equals the JAX
     kernel's labels on every valid point."""
     rng = np.random.default_rng(m + len(ks))
     b = len(ks)
-    pts, valid, w = _weighted_problem(rng, b, m, [m, m - 10, m // 2], w_max)
+    pts, valid, w = weighted_problem(rng, b, m, [m, m - 10, m // 2], w_max)
 
     @jax.jit
     def jrows(p, v, k, wt):
@@ -148,7 +127,7 @@ def test_weighted_centre_sums_match_jax(ks, k_max, m, w_max):
     pass 2^24, so only XLA's order gives these bits (ROADMAP §C11)."""
     rng = np.random.default_rng(m + k_max)
     b = len(ks)
-    pts, valid, w = _weighted_problem(rng, b, m, [m, m - 10, m // 2], w_max)
+    pts, valid, w = weighted_problem(rng, b, m, [m, m - 10, m // 2], w_max)
     init = pts[:, rng.integers(0, m // 2, k_max)].copy()
 
     def step(iters):

@@ -23,6 +23,8 @@ from roibasedimagecompression_torch.ops import slic as TSLIC
 from roibasedimagecompression_torch.ops.cuda import epscc as TEPS
 from roibasedimagecompression_torch.ops.cuda import slic_assign as TSA
 
+from kmeans_cases import KMEANS_ROWS_CASES, kmeans_problem
+
 
 @pytest.fixture()
 def one_thread():
@@ -257,23 +259,11 @@ def test_eps_components_packed_matches_union_find(rng):
     np.testing.assert_array_equal(got, want)
 
 
-def _kmeans_problem(rng, b, m, n_valid):
-    centers = rng.integers(0, 256, (b, 9, 3))
-    pick = rng.integers(0, 9, (b, m))
-    pts = np.clip(
-        np.take_along_axis(centers, pick[..., None].repeat(3, -1), 1)
-        + rng.integers(-30, 31, (b, m, 3)), 0, 255,
-    ).astype(np.float32)
-    valid = np.arange(m)[None, :] < np.asarray(n_valid)[:, None]
-    pts[~valid] = 0.0
-    return pts, valid
-
-
-@pytest.mark.parametrize("ks,k_max,m", [((5, 17, 2), 32, 1024), ((300, 280, 400), 512, 2048)])
+@pytest.mark.parametrize("ks,k_max,m", KMEANS_ROWS_CASES)
 def test_kmeans_rows_match_jax(rng, ks, k_max, m):
     b = len(ks)
     n_valid = [m, m - 100, m // 2]
-    pts, valid = _kmeans_problem(rng, b, m, n_valid)
+    pts, valid = kmeans_problem(rng, b, m, n_valid)
     plusplus = k_max <= 256
 
     @functools.partial(jax.jit, static_argnames=())
@@ -296,7 +286,7 @@ def test_kmeans_rows_match_jax(rng, ks, k_max, m):
 def test_kmeans_host_many_matches_jax(rng):
     problems = []
     for n, k in ((700, 40), (1500, 300), (1, 3), (50, 1)):
-        pts, _ = _kmeans_problem(rng, 1, n, [n])
+        pts, _ = kmeans_problem(rng, 1, n, [n])
         problems.append((pts[0], k))
     want = JCL.kmeans_host_many(problems, seed=42)
     got = TCL.kmeans_host_many(problems, torch.device("cpu"), seed=42)

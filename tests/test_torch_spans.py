@@ -297,6 +297,27 @@ def test_kmeans_counts_its_lloyd_iterations():
     assert timing.counters() == {}
 
 
+def test_kmeans_counts_where_its_noise_was_drawn():
+    """A k-means++ seeding on the CPU counts one `kmeans_noise.host`; given
+    initial centres or seeded random ones, no Gumbel noise is drawn and
+    neither counter moves."""
+    rng = np.random.default_rng(3)
+    pts = torch.from_numpy(rng.integers(0, 256, (2, 64, 3)).astype(np.float32))
+    valid = torch.ones((2, 64), dtype=torch.bool)
+
+    def noise_counts():
+        c = timing.counters()
+        return c.get("kmeans_noise.host", 0), c.get("kmeans_noise.card", 0)
+
+    TCL.kmeans_rows(pts, valid, [4, 5], k_max=8, seed=11)
+    assert noise_counts() == (1, 0)
+    TCL.kmeans_rows(pts, valid, [4, 5], k_max=8, seed=11, plusplus=False)
+    TCL.kmeans_rows(pts, valid, [4, 5], k_max=8, init_centers=pts[:, :8])
+    assert noise_counts() == (1, 0)
+    TCL.kmeans_rows(pts, valid, [4, 5], k_max=8, seed=12, weights=torch.ones((2, 64)))
+    assert noise_counts() == (2, 0)
+
+
 def test_kmeans_spans_sit_under_their_caller(recording):
     rng = np.random.default_rng(3)
     pts = torch.from_numpy(rng.integers(0, 256, (2, 64, 3)).astype(np.float32))
