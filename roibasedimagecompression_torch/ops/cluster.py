@@ -274,9 +274,12 @@ def kmeans_rows(
 
     Traced as the spans `kmeans.seed` (the initial centres) and
     `kmeans.lloyd` (the loop and the last assignment), and the counters
-    `kmeans_iters` (Lloyd iterations run) and `kmeans_noise.card` /
+    `kmeans_iters` (Lloyd iterations run), `kmeans_assign_pairs` (over every
+    assignment pass, the Lloyd passes and the last: the sum over rows of
+    valid points x that row's k, unpadded), `kmeans_noise.card` /
     `kmeans_noise.host` (one per k-means++ seeding, by where its noise was
-    drawn; `utils/timing.py`).
+    drawn) and `kmeans_init.uniform` (one per uniform start;
+    `utils/timing.py`).
     """
     b, m, _ = points.shape
     dev = points.device
@@ -332,6 +335,7 @@ def kmeans_rows(
                 d2_new = ((points - new_center[:, None, :]) ** 2).sum(dim=2)
                 min_d2 = torch.where(active, torch.minimum(min_d2, d2_new), min_d2)
         else:
+            timing.count("kmeans_init.uniform", 1)
             u = torch.from_numpy(prng.uniform(key, (m,))).to(dev)
             scores = u[None, :] + torch.where(
                 valid, torch.zeros((), device=dev), torch.full((), 2.0, device=dev)
@@ -370,17 +374,21 @@ def kmeans_rows(
 
     with stage_timer("kmeans.lloyd"):
         prev = torch.full((b, m), -1, dtype=torch.int64, device=dev)
+        pairs = (valid.sum(dim=1) * k).sum()  # of one assignment pass: valid points x k, all rows
         run = 0
         for _ in range(iters):
             labels = assign(centers)
             centers = update(labels, centers)
-            changed = bool((labels != prev).any())
+            changed = (labels != prev).any()
+            if run == 0:  # the pair count comes back with the first pass's wait
+                changed, pairs = torch.stack([changed.long(), pairs]).tolist()
             prev = labels
             run += 1
             if not changed:
                 break
         out = assign(centers).int()
     timing.count("kmeans_iters", run)
+    timing.count("kmeans_assign_pairs", int(pairs) * (run + 1))
     return out
 
 

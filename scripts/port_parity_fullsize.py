@@ -3,9 +3,11 @@
 
     JAX_PLATFORMS=cpu python3 scripts/port_parity_fullsize.py [--rows a,b,...]
         [--work DIR] [--write-data tests/data/jax_parity_768x512.json]
+        [--shape HxW] [--ids 100-107] [--write-digests CONFIG.digests.json]
 
 Every row below encodes `utils/synthetic.py synthetic_image(seed, 512, 768)`
-(Kodak's shape, the images `chip_smoke.py` encodes) through the JAX package
+(Kodak's shape, the images `chip_smoke.py` encodes; `--shape` gives another,
+`--ids` other seeds for every row run) through the JAX package
 and through the port with `device="cpu"`, and compares the two by container
 bytes and by the payload digest (`io/container.py payload_digest`, the same
 reader for both packages' bytes).  Each side runs in a
@@ -28,6 +30,17 @@ images against the port's.
 level 0, PSNR and SSIM) to the data file that `tests/test_torch_fullsize.py`
 and `chip_smoke.py`'s parity phase read.  The whole table takes about half
 an hour on an 8-core host; run it in the background.
+
+`--write-digests` writes the JAX side's payload digests of the `encode_many`
+rows run to a benchmark configuration's digests file (the shape of
+`portbench/configs/*.digests.json`: `entries.encode_many`, id to digest,
+with the JAX version and the CPU count): for example
+`--rows b --shape 1365x2048 --ids 100-107 --write-digests
+portbench/configs/clic2048-default.digests.json` (about 25 minutes on 8
+cores).  The rows written must share one codec configuration, which has to
+be the configuration file's `codec`.
+
+This script imports JAX and the JAX package; the benchmark never runs it.
 """
 
 from __future__ import annotations
@@ -47,7 +60,7 @@ if HERE not in sys.path:
 
 from roibasedimagecompression_torch.io.container import payload_digest  # noqa: E402
 
-H, W = 512, 768
+H, W = 512, 768  # --shape sets them, in this process and in its children
 C11_LINE = 2**24 // 255
 
 
@@ -56,7 +69,8 @@ class Row:
     """One path: `encode` or `encode_many` at a config (keyword arguments of
     CodecConfig, or "low_latency"), with environment switches, over seeds.
     `enhance`: the image goes through `enhance_shadows` first, as the CLI's
-    `--enhance-shadows` does.  `crop`: (y0, x0, h, w) of the 512x768 image."""
+    `--enhance-shadows` does.  `crop`: (y0, x0, h, w) of the image.  `shape`:
+    (H, W), where the row runs at that shape only."""
 
     id: str
     path: str
@@ -66,6 +80,7 @@ class Row:
     enhance: bool = False
     crop: tuple | None = None
     note: str = ""
+    shape: tuple | None = None
 
     @property
     def group(self) -> str:
@@ -106,6 +121,10 @@ ROWS = (
         note="row e on a crop that holds ROI pixels"),
     Row("g-crop", "encode", {"weighted_split": True, "split_method": "kmeans"}, (101,),
         crop=(0, 0, 288, 384), note="row g on a crop whose k-means rows cross 65,793 pixels"),
+    # A crop of a CLIC-sized image whose tier 1 takes the uniform start
+    # (k 269 of k_max 512 over 26,849 colours): tests/test_torch_fullsize.py.
+    Row("b-crop", "encode_many", {}, (103,), crop=(0, 0, 720, 1040), shape=(1365, 2048),
+        note="row b on a crop of a 1365x2048 image whose tier-1 k-means has k_max 512"),
 )
 ROW_IDS = tuple(r.id for r in ROWS)
 METRICS_ROW = "k"
@@ -329,9 +348,14 @@ def run_metrics_child(work: str, seeds) -> int:
 # The parent: children one at a time, then the comparison.
 # ---------------------------------------------------------------------------
 
+# Options every child gets from the parent: the shape and the ids.
+CHILD_OPTIONS: list = []
+
+
 def child(args: list, env: dict, log) -> None:
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), *args], env=env, cwd=HERE,
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), *args, *CHILD_OPTIONS],
+                          env=env, cwd=HERE,
                           capture_output=True, text=True)
     log.write(proc.stdout + proc.stderr)
     log.flush()
@@ -354,6 +378,26 @@ def first_difference(row: Row, seed: int, work: str, env: dict, log) -> str:
     return "encode_debug equal throughout (the difference is past its canvas path)"
 
 
+def parse_ids(text: str) -> tuple:
+    """"100-107" or "100,102,104" as a tuple of ints."""
+    out = []
+    for part in text.split(","):
+        lo, _, hi = part.partition("-")
+        out.extend(range(int(lo), int(hi or lo) + 1))
+    return tuple(out)
+
+
+def set_shape_and_ids(shape: str, ids: str | None) -> None:
+    """Set the image shape and, when given, every row's seeds, and hand both
+    on to the children."""
+    global H, W, ROWS
+    H, W = (int(v) for v in shape.lower().split("x"))
+    CHILD_OPTIONS[:] = ["--shape", f"{H}x{W}"]
+    if ids is not None:
+        ROWS = tuple(dataclasses.replace(r, seeds=parse_ids(ids)) for r in ROWS)
+        CHILD_OPTIONS.extend(["--ids", ids])
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--rows", default=",".join(ROW_IDS + (METRICS_ROW,)))
@@ -362,7 +406,11 @@ def main(argv=None) -> int:
     p.add_argument("--child", nargs=2, metavar=("SIDE", "ROWS"))
     p.add_argument("--debug-child", nargs=3, metavar=("SIDE", "ROW", "SEED"))
     p.add_argument("--metrics-child", action="store_true")
+    p.add_argument("--shape", default=f"{H}x{W}", help="HxW of every image (default 512x768)")
+    p.add_argument("--ids", default=None, help="seeds of every row run, as 100-107 or 100,102")
+    p.add_argument("--write-digests", default=None, metavar="PATH")
     args = p.parse_args(argv)
+    set_shape_and_ids(args.shape, args.ids)
     work = os.path.abspath(args.work)
     os.makedirs(work, exist_ok=True)
     if args.child:
@@ -375,7 +423,7 @@ def main(argv=None) -> int:
         return run_metrics_child(work, metrics_seeds)
 
     wanted = args.rows.split(",")
-    rows = [r for r in ROWS if r.id in wanted]
+    rows = [r for r in ROWS if r.id in wanted and r.shape in (None, (H, W))]
     groups = {}
     for r in rows:
         groups.setdefault(r.group, []).append(r)
@@ -423,10 +471,40 @@ def main(argv=None) -> int:
         json.dump(results, f, indent=1)
     if args.write_data:
         write_data(args.write_data, results)
+    if args.write_digests:
+        write_digests(args.write_digests, results)
     n = sum(1 for k, r in results.items() if k != METRICS_ROW)
     eq = sum(1 for k, r in results.items() if k != METRICS_ROW and r["digest_equal"])
     print(f"{eq} of {n} encodes equal by payload digest; {time.perf_counter() - t_all:.0f} s in all")
     return 0
+
+
+def write_digests(path: str, results: dict) -> None:
+    """The JAX side's payload digests of the `encode_many` rows run, as a
+    benchmark configuration's digests file."""
+    import jax
+
+    rows = [r for k, r in results.items() if k != METRICS_ROW and r["path"] == "encode_many"]
+    if not rows:
+        raise SystemExit("--write-digests: no encode_many row was run")
+    if len({json.dumps(r["config"]) for r in rows}) != 1:
+        raise SystemExit("--write-digests: the encode_many rows run have different configurations")
+    ids = sorted({r["seed"] for r in rows})
+    doc = {
+        "about": f"Payload digests (portbench/reference.py digest) of the JAX package's encodes of "
+                 f"synthetic_image(id, {H}, {W}), ids {ids[0]}-{ids[-1]}, on an {os.cpu_count()}-core "
+                 f"CPU host: encode_many of the set in id order, written by "
+                 f"scripts/port_parity_fullsize.py --write-digests. Data only.",
+        "cpu_count": os.cpu_count(),
+        "jax": jax.__version__,
+        "entries": {"encode_many": {str(r["seed"]): r["jax"]["digest"]
+                                    for r in sorted(rows, key=lambda r: r["seed"])}},
+    }
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=1)
+        f.write("\n")
+    print(f"wrote {len(rows)} digests to {path}")
 
 
 def write_data(path: str, results: dict) -> None:
@@ -452,7 +530,7 @@ def write_data(path: str, results: dict) -> None:
     order = {rid: i for i, rid in enumerate(ROW_IDS)}
     entries = sorted(old.values(), key=lambda e: (order.get(e["row"], 99), e["seed"]))
     doc = {
-        "about": "The JAX package's answers on synthetic_image(seed, 512, 768) (crop: (y0, x0, h, w) of "
+        "about": f"The JAX package's answers on synthetic_image(seed, {H}, {W}) (crop: (y0, x0, h, w) of "
                  "it), written by scripts/port_parity_fullsize.py from the JAX side, all but "
                  "port_roi_pixels.  digest: sha256 of the unpacked palette's bytes, the index matrix's "
                  "bytes and repr of its shape; container_len_level0: the payload packed at "

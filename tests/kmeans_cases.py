@@ -4,8 +4,10 @@ path to its CPU path.  Imports no JAX."""
 
 import numpy as np
 
-# (ks, k_max, m): k-means++ rows, and seeded random initial centres (k_max > 256)
-KMEANS_ROWS_CASES = [((5, 17, 2), 32, 1024), ((300, 280, 400), 512, 2048)]
+# (ks, k_max, m): k-means++ rows, and seeded random initial centres (k_max > 256),
+# the last at tier 1's k_max of a CLIC-sized (2048x1365) photograph
+KMEANS_ROWS_CASES = [((5, 17, 2), 32, 1024), ((300, 280, 400), 512, 2048),
+                     ((900, 700, 1000), 1024, 4096)]
 
 # (ks, k_max, m, w_max) of the weighted k-means
 WEIGHTED_ROWS_CASES = [

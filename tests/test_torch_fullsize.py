@@ -33,6 +33,7 @@ from roibasedimagecompression_torch.ops import cluster as TCL
 from roibasedimagecompression_torch.utils.synthetic import synthetic_image
 
 DATA = pathlib.Path(__file__).resolve().parent / "data" / "jax_parity_768x512.json"
+CLIC_DATA = DATA.with_name("jax_parity_1365x2048.json")
 C11_LINE = 2**24 // 255  # 65,793 pixels
 
 
@@ -46,14 +47,14 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-def _entry(row: str, seed: int) -> dict:
-    with open(DATA) as f:
+def _entry(row: str, seed: int, data: pathlib.Path = DATA) -> dict:
+    with open(data) as f:
         doc = json.load(f)
     return next(e for e in doc["entries"] if e["row"] == row and e["seed"] == seed)
 
 
-def _image(entry: dict) -> np.ndarray:
-    h, w = json.loads(DATA.read_text())["shape"]
+def _image(entry: dict, data: pathlib.Path = DATA) -> np.ndarray:
+    h, w = json.loads(data.read_text())["shape"]
     img = synthetic_image(entry["seed"], h, w)
     if entry["crop"] is not None:
         y0, x0, ch, cw = entry["crop"]
@@ -106,3 +107,29 @@ def test_port_matches_jax_digests_fullsize(one_thread, monkeypatch, row, seed):
         assert TROI.roi_masks(img, config, "cpu")[0].any()
     else:
         assert max(t for t, m in totals if m == 1024) > C11_LINE
+
+
+def test_port_matches_jax_digest_on_a_clic_crop(one_thread, monkeypatch):
+    """A 720x1040 crop of a CLIC-sized photograph, `synthetic_image(103,
+    1365, 2048)`: the port's CPU `encode_many` gives the JAX package's
+    digest (`tests/data/jax_parity_1365x2048.json`, written by
+    `scripts/port_parity_fullsize.py --shape 1365x2048 --rows b-crop`), and
+    its tier 1 runs a k-means at k_max 512 from the uniform start."""
+    from roibasedimagecompression_torch.parallel import stream as TSTREAM
+    from roibasedimagecompression_torch.utils import timing
+
+    entry = _entry("b-crop", 103, CLIC_DATA)
+    img = _image(entry, CLIC_DATA)
+    k_maxes = []
+    inner = TCL.kmeans_rows
+
+    def recorded(points, valid, k, *, k_max, **kw):
+        k_maxes.append(k_max)
+        return inner(points, valid, k, k_max=k_max, **kw)
+
+    monkeypatch.setattr(TCL, "kmeans_rows", recorded)
+    timing.reset_stages()
+    _check(entry, TSTREAM.encode_many([img], rtt.CodecConfig(**entry["config"]), "cpu")[0])
+    assert max(k_maxes) > 256
+    assert timing.counters()["kmeans_init.uniform"] >= 1
+    timing.reset_stages()

@@ -118,6 +118,33 @@ def test_cuda_kmeans_rows_match_cpu(cuda, ks, k_max, m):
 
 
 @pytest.mark.cuda
+def test_cuda_kmeans_rows_match_cpu_at_clic_size(cuda):
+    """Tier 1's largest k-means of a CLIC-sized (2048x1365) photograph: one
+    row padded to 131,072 points, 90,000 of them distinct colours, k 900 of
+    k_max 1024, the uniform start and up to 25 Lloyd passes; the card's
+    labels against the CPU's, and the pairs counted on each side."""
+    rng = np.random.default_rng(2048)
+    m, n, k = 131_072, 90_000, 900
+    codes = rng.choice(1 << 24, n, replace=False)
+    pts = np.zeros((1, m, 3), np.float32)
+    pts[0, :n] = np.stack([codes >> 16, (codes >> 8) & 255, codes & 255], axis=1)
+    valid = np.arange(m)[None, :] < n
+    runs = []
+    for dev in ("cpu", cuda):
+        timing.reset_stages()
+        lab = TCL.kmeans_rows(torch.from_numpy(pts).to(dev), torch.from_numpy(valid).to(dev),
+                              np.array([k]), k_max=1024, plusplus=False).cpu().numpy()
+        c = timing.counters()
+        assert c["kmeans_init.uniform"] == 1
+        assert c["kmeans_assign_pairs"] == n * k * (c["kmeans_iters"] + 1)
+        runs.append((lab, c["kmeans_iters"]))
+    timing.reset_stages()
+    (want, want_iters), (got, got_iters) = runs
+    assert got_iters == want_iters
+    np.testing.assert_array_equal(got[valid], want[valid])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("ks,k_max,m,w_max", WEIGHTED_ROWS_CASES)
 def test_cuda_weighted_kmeans_rows_match_cpu(cuda, ks, k_max, m, w_max):
     """The cases of test_weighted_kmeans_rows_match_jax."""

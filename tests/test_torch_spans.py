@@ -290,9 +290,10 @@ def test_kmeans_counts_its_lloyd_iterations():
     init[0, 1, 0] = 1.0
     labels = TCL.kmeans_rows(pts, valid, [2], k_max=2, init_centers=init)
     assert labels.tolist() == [[0, 0, 1, 1]]
-    assert timing.counters() == {"kmeans_iters": 3}
+    # 4 points x 2 centres, in 3 passes and the last assignment
+    assert timing.counters() == {"kmeans_iters": 3, "kmeans_assign_pairs": 4 * 2 * 4}
     TCL.kmeans_rows(pts, valid, [2], k_max=2, init_centers=init, iters=2)
-    assert timing.counters() == {"kmeans_iters": 5}
+    assert timing.counters() == {"kmeans_iters": 5, "kmeans_assign_pairs": 32 + 4 * 2 * 3}
     timing.reset_stages()
     assert timing.counters() == {}
 
@@ -316,6 +317,45 @@ def test_kmeans_counts_where_its_noise_was_drawn():
     assert noise_counts() == (1, 0)
     TCL.kmeans_rows(pts, valid, [4, 5], k_max=8, seed=12, weights=torch.ones((2, 64)))
     assert noise_counts() == (2, 0)
+
+
+def test_kmeans_counts_its_uniform_starts():
+    """One `kmeans_init.uniform` per seeded random start; none for a
+    k-means++ start or given centres."""
+    rng = np.random.default_rng(4)
+    pts = torch.from_numpy(rng.integers(0, 256, (2, 64, 3)).astype(np.float32))
+    valid = torch.ones((2, 64), dtype=torch.bool)
+
+    def uniform():
+        return timing.counters().get("kmeans_init.uniform", 0)
+
+    TCL.kmeans_rows(pts, valid, [4, 5], k_max=8, seed=11)
+    TCL.kmeans_rows(pts, valid, [4, 5], k_max=8, init_centers=pts[:, :8])
+    assert uniform() == 0
+    TCL.kmeans_rows(pts, valid, [4, 5], k_max=8, seed=11, plusplus=False)
+    assert uniform() == 1
+    TCL.kmeans_rows(pts, valid, [4, 5], k_max=8, seed=12, plusplus=False)
+    assert uniform() == 2
+    assert timing.counters()["kmeans_noise.host"] == 1
+
+
+def test_kmeans_assign_pairs_count_valid_points_times_k():
+    """Two rows padded to 64 points, 50 and 20 of them valid, k 5 and 3 of
+    k_max 8: each assignment pass counts 50 x 5 + 20 x 3 pairs, the padding
+    none; the passes are the Lloyd iterations and the last assignment."""
+    rng = np.random.default_rng(5)
+    pts = torch.from_numpy(rng.integers(0, 256, (2, 64, 3)).astype(np.float32))
+    valid = torch.arange(64)[None, :] < torch.tensor([[50], [20]])
+    pts[~valid] = 0.0
+    for plusplus in (True, False):
+        timing.reset_stages()
+        TCL.kmeans_rows(pts, valid, [5, 3], k_max=8, seed=7, plusplus=plusplus)
+        c = timing.counters()
+        assert c["kmeans_iters"] >= 2
+        assert c["kmeans_assign_pairs"] == (50 * 5 + 20 * 3) * (c["kmeans_iters"] + 1)
+    timing.reset_stages()
+    TCL.kmeans_rows(pts, valid, [5, 3], k_max=8, seed=7, iters=1)
+    assert timing.counters()["kmeans_assign_pairs"] == (50 * 5 + 20 * 3) * 2
 
 
 def test_kmeans_spans_sit_under_their_caller(recording):
