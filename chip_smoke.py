@@ -6,7 +6,7 @@
 Phases, in order; any failed check exits non-zero:
   1. environment: card name and power limit, torch and CUDA versions, TF32
      switches, the libdeflate the container loads;
-  2. build: the native host runtime (g++) and the three CUDA kernel
+  2. build: the native host runtime (g++) and the four CUDA kernel
      sources (one nvcc per source, started together), with the seconds each
      took;
   3. kernel 1 (SLIC assign), in both its forms (the expanded form of the
@@ -23,7 +23,12 @@ Phases, in order; any failed check exits non-zero:
      m) the cells draw most, (256, 16384) and (64, 65536), at a short row
      and at tails of a block's tile, timed by CUDA events (launches queued
      behind a sleep, so the host's launch rate is not timed) against its
-     integer-instruction bound;
+     integer-instruction bound; then kernel 4 (the k-means++ seeding)
+     against its plain version, the Python step a centre `_plusplus_loop` on
+     the card, bit for bit, at tier 1's (1, 16384, 142) and (1, 32768, 189)
+     and a split bucket (128, 1024, 16), timed (queued, and a step's time)
+     beside the loop's card and host time; phases 5, 7 and 8 check that
+     every seeding was one launch of it and none took the loop;
   4. kernel 2 (eps sweep) against its plain version, and the loop kernel
      against the plain loop and the host union-find, at the bucket shapes
      (B, N) = (64, 1024), (16, 4096), (4, 10240): labels must be equal.  It
@@ -122,7 +127,8 @@ Phases, in order; any failed check exits non-zero:
      kmeans-mc and --enhance-shadows, and phase 12's child without the
      runtime), counts read around each, each held by its digest; and the
      PSNR and SSIM of the batch's 8 decodes on the card against the file's;
- 16. cover: every (form, B, MP, K), (B, N) and Gumbel (seed, n_draws, m)
+ 16. cover: every (form, B, MP, K), (B, N), Gumbel (seed, n_draws, m) and
+     k-means++ (B, m, n_draws, k_max)
      that phases 5 and 7-15 launched and phases 3 and 4 did not check is
      checked against the plain version now, so no path runs a kernel at a
      shape the run has not held;
@@ -216,7 +222,7 @@ EPS_PACKED_SHAPES = ((7, 9999), (26, 1024), (1, 64), (48, 9999), (17, 4096), (12
 
 # Every shape a path launched a kernel at (read_counts adds to it); kernel 1's
 # as (form, B, MP, K).
-launched_shapes = {"slic_assign": set(), "eps_components": set(), "gumbel": set()}
+launched_shapes = {"slic_assign": set(), "eps_components": set(), "gumbel": set(), "kmeanspp": set()}
 SLIC_FORMS = ("expanded", "direct")
 
 
@@ -377,6 +383,76 @@ def check_gumbel(device, seed, n, m, timed=True):
            "bound_ms": max(t_ops, t_bytes), "bound_by": "integer operations" if t_ops >= t_bytes else "bytes"}
     if timed and device.type == "cuda":
         rec["ms"] = time_queued_ms(lambda: GUMBEL.gumbel_table(seed, m, n, device))
+    return rec
+
+
+# (B, m, n_draws, k_max) kernel 4 is checked at before the paths run: tier 1's
+# seedings (one row of 16,384 and one of 32,768 colours, at k 142 and 189) and
+# a split bucket of narrow rows.  The cover phase checks every (B, m, n_draws,
+# k_max) a path launched beyond these.
+KMEANSPP_SHAPES = ((1, 16_384, 142, 256), (1, 32_768, 189, 256), (128, 1_024, 16, 16))
+
+
+def kmeanspp_inputs(device, b, m, n_draws, k_max, seed=0):
+    """Integer colours in clumps, a ragged valid prefix a row, k = n_draws in
+    row 0 and 1..n_draws in the others, and kernel 3's noise."""
+    import numpy as np
+    import torch
+
+    from roibasedimagecompression_torch.ops.cuda import gumbel as GUMBEL
+
+    rng = np.random.default_rng(seed)
+    centers = rng.integers(0, 256, (b, 40, 3))
+    pick = rng.integers(0, 40, (b, m))
+    pts = np.clip(np.take_along_axis(centers, pick[..., None].repeat(3, -1), 1)
+                  + rng.integers(-30, 31, (b, m, 3)), 0, 255).astype(np.float32)
+    valid = np.arange(m)[None, :] < rng.integers(m // 2, m + 1, b)[:, None]
+    valid[0] = True
+    pts[~valid] = 0.0
+    ks = rng.integers(1, n_draws + 1, b)
+    ks[0] = n_draws
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return t(pts), t(valid), t(ks.astype(np.int64)), GUMBEL.gumbel_table(GUMBEL_SEED, m, n_draws, device)
+
+
+def check_kmeanspp(device, b, m, n_draws, k_max, timed=True):
+    """Kernel 4 at (B, m, n_draws, k_max) against its plain version, the
+    Python step a centre (`ops/cluster.py _plusplus_loop`) on the same card,
+    bit for bit; with `timed`, the kernel's card time (queued), its time a
+    step (against a one-step seeding of the same rows), the loop's card time
+    and its host time."""
+    import numpy as np
+    import torch
+
+    from roibasedimagecompression_torch.ops import cluster as TCL
+    from roibasedimagecompression_torch.ops.cuda import kmeanspp as KPP
+
+    pts, valid, ks, noise = kmeanspp_inputs(device, b, m, n_draws, k_max)
+    table = TCL._log32_table(device)
+    run = lambda: KPP.kmeanspp_centers(pts, valid, ks, noise, table, k_max)  # noqa: E731
+    plain = lambda: TCL._plusplus_loop(pts, valid, ks, noise, table, k_max)  # noqa: E731
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    n_diff = int((got.cpu().numpy().view(np.int32) != want.cpu().numpy().view(np.int32)).sum())
+    check(n_diff == 0, f"the k-means++ kernel differs from the plain loop in {n_diff} of {got.numel()} "
+                       f"centre values at (B, m, n_draws, k_max) = ({b}, {m}, {n_draws}, {k_max})")
+    # 12 operations a point and step after the first, 2 in the first; the
+    # points, valid flags and used noise rows read once, the centres written.
+    steps = int(torch.clamp(ks, 1, min(n_draws, k_max)).sum())
+    ops = 12.0 * m * (steps - b) + 2.0 * m * b
+    nbytes = 13.0 * b * m + 4.0 * min(n_draws, k_max) * m + 8.0 * b + 12.0 * b * k_max
+    rec = {"shape": [b, m, n_draws, k_max], "plan": list(KPP.plan(m)), "values_differing": n_diff}
+    rec["bound_ms"], rec["bound_by"] = bound_ms(ops, nbytes)
+    if timed:
+        ones = torch.ones_like(ks)
+        rec["ms"] = time_queued_ms(run, reps=50)
+        one_step = time_queued_ms(lambda: KPP.kmeanspp_centers(pts, valid, ones, noise, table, k_max), reps=50)
+        rec["step_us"] = (rec["ms"] - one_step) * 1e3 / max(1, min(n_draws, k_max) - 1)
+        rec["plain_ms"] = time_cuda(plain, reps=3, warmup=1)
+        t0 = time.perf_counter()
+        plain()
+        rec["plain_host_ms"] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
     return rec
 
 
@@ -664,36 +740,53 @@ def reset_counts() -> None:
     """Set every kernel's launch count to 0: called just before a path runs."""
     from roibasedimagecompression_torch.ops.cuda import epscc as EPS
     from roibasedimagecompression_torch.ops.cuda import gumbel as GUMBEL
+    from roibasedimagecompression_torch.ops.cuda import kmeanspp as KPP
     from roibasedimagecompression_torch.ops.cuda import slic_assign as SA
     from roibasedimagecompression_torch.utils import timing
 
     timing.reset_stages()
-    SA.launches = EPS.launches = EPS.sweep_launches = EPS.rounds = GUMBEL.launches = 0
+    SA.launches = EPS.launches = EPS.sweep_launches = EPS.rounds = GUMBEL.launches = KPP.launches = 0
     SA.launches_by_form.clear()
     SA.launch_shapes.clear()
     EPS.loop_shapes.clear()
     GUMBEL.launch_shapes.clear()
+    KPP.launch_shapes.clear()
 
 
 def read_counts():
     """(launch counts, launch-shape histograms) since reset_counts."""
     from roibasedimagecompression_torch.ops.cuda import epscc as EPS
     from roibasedimagecompression_torch.ops.cuda import gumbel as GUMBEL
+    from roibasedimagecompression_torch.ops.cuda import kmeanspp as KPP
     from roibasedimagecompression_torch.ops.cuda import slic_assign as SA
+    from roibasedimagecompression_torch.utils import timing
 
     launched_shapes["slic_assign"].update(SA.launch_shapes)
     launched_shapes["eps_components"].update(EPS.loop_shapes)
     launched_shapes["gumbel"].update(GUMBEL.launch_shapes)
+    launched_shapes["kmeanspp"].update(KPP.launch_shapes)
+    counters = timing.counters()
     launches = {"slic_assign": SA.launches, "slic_assign_expanded": SA.launches_by_form["expanded"],
                 "slic_assign_direct": SA.launches_by_form["direct"], "eps_components": EPS.launches,
                 "eps_sweep_alone": EPS.sweep_launches, "eps_rounds": EPS.rounds,
-                "gumbel": GUMBEL.launches}
+                "gumbel": GUMBEL.launches, "kmeanspp": KPP.launches,
+                "kmeans_seed.kernel": counters.get("kmeans_seed.kernel", 0),
+                "kmeans_seed.loop": counters.get("kmeans_seed.loop", 0)}
     shapes = {
         "slic_assign (form, B, MP, K)": {str(k): v for k, v in sorted(SA.launch_shapes.items())},
         "eps loop (B, N)": {str(k): v for k, v in sorted(EPS.loop_shapes.items())},
         "gumbel (seed, n_draws, m)": {str(k): v for k, v in sorted(GUMBEL.launch_shapes.items())},
+        "kmeanspp (B, m, n_draws, k_max)": {str(k): v for k, v in sorted(KPP.launch_shapes.items())},
     }
     return launches, shapes
+
+
+def check_seedings(launches, what) -> None:
+    """On an unweighted path every k-means++ seeding is one launch of kernel
+    4, beside one noise draw of kernel 3, and none takes the plain loop."""
+    check(launches["kmeanspp"] == launches["kmeans_seed.kernel"] == launches["gumbel"]
+          and launches["kmeans_seed.loop"] == 0,
+          f"{what} seeded k-means++ off the kernel: {launches}")
 
 
 def compare_with_cpu(results, images, datas, refs, config, device) -> None:
@@ -1734,6 +1827,12 @@ def main() -> int:
         print(f"[gumbel] seed {r['seed']}, (n_draws, m) = {tuple(r['shape'])}: bits equal the host table; "
               f"kernel {r['ms']:.4f} ms (queued), host table {r['plain_ms']:.1f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
+    k4 = [check_kmeanspp(device, *shape) for shape in KMEANSPP_SHAPES]
+    for r in k4:
+        print(f"[kmeanspp] (B, m, n_draws, k_max) = {tuple(r['shape'])}, plan (cluster, threads, slice, "
+              f"on chip) {tuple(r['plan'])}: centres equal the plain loop's bit for bit; kernel {r['ms']:.4f} ms "
+              f"(queued), {r['step_us']:.2f} us a step; plain loop {r['plain_ms']:.2f} ms on the card, "
+              f"{r['plain_host_ms']:.2f} ms host; bound {r['bound_ms']:.5f} ms ({r['bound_by']}) [{card}]")
 
     print(f"[time] phase 3 ended at {time.perf_counter() - t_script:.1f} s")
     # -- 4. kernel 2 -------------------------------------------------------------
@@ -1766,8 +1865,9 @@ def main() -> int:
     print(f"[time] phase 4 ended at {time.perf_counter() - t_script:.1f} s")
     # -- 5. one image at a time ---------------------------------------------------
     results, launches_one, shapes, stages, idle, images_one, datas_one = run_end_to_end(device)
-    for name in ("slic_assign_expanded", "eps_components", "eps_rounds", "gumbel"):
+    for name in ("slic_assign_expanded", "eps_components", "eps_rounds", "gumbel", "kmeanspp"):
         check(launches_one[name] > 0, f"the one-image path launched {name} no time")
+    check_seedings(launches_one, "the one-image path")
     print(f"[e2e] launches over {len(results)} encodes: {launches_one}")
     for name, hist in shapes.items():
         print(f"[e2e] launch shapes, {name}: {json.dumps(hist)}")
@@ -1798,8 +1898,9 @@ def main() -> int:
     runs = {}
     for label, config in (("default", cfg.CodecConfig()), ("low_latency", cfg.CodecConfig.low_latency())):
         br = runs[label] = run_batch(device, batches[0], config, profile=label == "default")
-        for name in ("slic_assign_expanded", "eps_components", "eps_rounds", "gumbel"):
+        for name in ("slic_assign_expanded", "eps_components", "eps_rounds", "gumbel", "kmeanspp"):
             check(br["launches"][name] > 0, f"the batch path ({label}) launched {name} no time")
+        check_seedings(br["launches"], f"the batch path ({label})")
         print(f"[batch {label}] encode_many of 8 x 768x512: {br['seconds']:.3f} s warm, "
               f"{br['images_per_second']:.3f} images/s; bytes equal with RHCCQ_DEVICE_PAIRS=0 [{card}]")
         print(f"[batch {label}] launches: {br['launches']}")
@@ -1819,8 +1920,9 @@ def main() -> int:
     # its thread's CUDA streams.  No profiler window here: phase 7 measures
     # the idle share, and a traced stream took two minutes of the script.
     sr = run_stream(device, batches, runs["default"]["datas"])
-    for name in ("slic_assign", "eps_components", "eps_rounds", "gumbel"):
+    for name in ("slic_assign", "eps_components", "eps_rounds", "gumbel", "kmeanspp"):
         check(sr["launches"][name] > 0, f"the stream path launched {name} no time")
+    check_seedings(sr["launches"], "the stream path")
     print(f"[stream] encode_stream of {len(batches)} batches of 8, workers=2: equal to sequential encode_many byte "
           f"for byte; {sr['seconds']:.3f} s, {sr['images_per_second']:.3f} images/s "
           f"(sequential: {sr['sequential_seconds']:.3f} s, {sr['sequential_images_per_second']:.3f} images/s) [{card}]")
@@ -1850,7 +1952,8 @@ def main() -> int:
     print(f"[cli] phase seconds: {t_cli:.1f}")
     launches_cli = {name: sum(rec["launches"][name] for rec in cr["options"].values())
                     for name in ("slic_assign", "slic_assign_expanded", "slic_assign_direct",
-                                 "eps_components", "eps_sweep_alone", "eps_rounds", "gumbel")}
+                                 "eps_components", "eps_sweep_alone", "eps_rounds", "gumbel", "kmeanspp",
+                                 "kmeans_seed.kernel", "kmeans_seed.loop")}
 
     print(f"[time] phase 9 ended at {time.perf_counter() - t_script:.1f} s")
     # -- 10. canvas -----------------------------------------------------------------
@@ -2032,6 +2135,13 @@ def main() -> int:
           f"the host table ({time.perf_counter() - t_cover:.1f} s of host tables)")
     for r in k3:
         r["on_path"] = (r["seed"], *r["shape"]) in launched_shapes["gumbel"]
+    t_cover = time.perf_counter()
+    more_kpp = sorted(launched_shapes["kmeanspp"] - {tuple(r["shape"]) for r in k4})
+    k4 += [check_kmeanspp(device, *shape, timed=False) for shape in more_kpp]
+    print(f"[cover] the k-means++ kernel also checked at (B, m, n_draws, k_max) {more_kpp}: centres equal "
+          f"the plain loop's ({time.perf_counter() - t_cover:.1f} s)")
+    for r in k4:
+        r["on_path"] = tuple(r["shape"]) in launched_shapes["kmeanspp"]
     for r in k1:
         r["on_path"] = slic_key(r) in launched_shapes["slic_assign"]
     for r in k2_packed:
@@ -2138,7 +2248,22 @@ def main() -> int:
            "bound_ms": k3[0]["bound_ms"], "bound_by": k3[0]["bound_by"], "library_ms": None,
            "per_shape": [{k: r.get(k) for k in ("seed", "shape", "on_path", "ms", "plain_ms", "bound_ms")}
                          for r in k3]},
+        # Kernel 4 has no Pallas counterpart either: the JAX package seeds
+        # k-means++ in XLA (a fori_loop of categorical draws).  Its headline
+        # is tier 1's (1, 32768, 189, 256); `ms` is queued card time,
+        # `step_us` its time a step, `plain_ms` the Python step a centre on
+        # the card (`plain_host_ms` its host time).
+        {"name": "kmeanspp", "route": "cuda",
+         "source": "roibasedimagecompression_torch/csrc/kmeanspp.cu",
+         "replaces": "roibasedimagecompression_tpu/ops/cluster.py:196-232 (kmeans' k-means++ fori_loop, in XLA)"}
+        | launches_of("kmeanspp")
+        | {"max_abs_err": 0.0, "shape": k4[1]["shape"], "ms": k4[1]["ms"], "step_us": k4[1]["step_us"],
+           "plain_ms": k4[1]["plain_ms"], "plain_host_ms": k4[1]["plain_host_ms"],
+           "bound_ms": k4[1]["bound_ms"], "bound_by": k4[1]["bound_by"], "library_ms": None,
+           "per_shape": [{k: r.get(k) for k in ("shape", "plan", "on_path", "ms", "step_us", "plain_ms",
+                                                "plain_host_ms", "bound_ms")} for r in k4]},
     ]
+    print(f"[kmeanspp] launches over the smoke's paths: {launches_of('kmeanspp')}")
     print(parity_line)
     print(json.dumps({"kernels": kernels}))
     print(card)

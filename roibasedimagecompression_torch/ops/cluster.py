@@ -6,7 +6,9 @@ over the plain sweep (the CUDA path runs the same driver over the kernel,
 ops/cuda/epscc.py).  k-means reproduces the JAX package's `ops/cluster.kmeans`:
 k-means++ (or seeded random) initial centres drawn with JAX's threefry bits
 (ops/prng.py; the k-means++ noise on a CUDA device by the kernel of
-ops/cuda/gumbel.py, elsewhere by `_gumbel_table` on the host), the expanded
+ops/cuda/gumbel.py, elsewhere by `_gumbel_table` on the host; the unweighted
+k-means++ steps on a CUDA device by the kernel of ops/cuda/kmeanspp.py,
+elsewhere by the plain loop `_plusplus_loop`), the expanded
 |a|^2 + |b|^2 - 2ab distance with XLA's fused multiply-adds, first-index
 argmin and early-exit Lloyd.
 
@@ -32,6 +34,7 @@ from roibasedimagecompression_torch.ops import xla_order as XO
 from roibasedimagecompression_torch.ops.colors import fma32
 from roibasedimagecompression_torch.ops.cuda import epscc as EPS
 from roibasedimagecompression_torch.ops.cuda import gumbel as GUMBEL
+from roibasedimagecompression_torch.ops.cuda import kmeanspp as KPP
 from roibasedimagecompression_torch.parallel import shard as SHARD
 from roibasedimagecompression_torch.utils import dispatch as DISPATCH
 from roibasedimagecompression_torch.utils import timing
@@ -247,6 +250,59 @@ def _weighted_sums(labels: torch.Tensor, w: torch.Tensor, points: torch.Tensor,
     return out
 
 
+def _on_card(dev: torch.device) -> bool:
+    """Whether `dev` is a CUDA device: the k-means++ route's one question of
+    the device (the tests ask it of a CPU tensor to follow the card's route)."""
+    return dev.type == "cuda"
+
+
+def _plusplus_loop(points, valid, k, noise, log_d2, k_max: int, w_pts=None) -> torch.Tensor:
+    """(B, k_max, 3) float32 k-means++ initial centres, one Python step a
+    centre: the plain version of the card's kernel (`ops/cuda/kmeanspp.py`),
+    and the weighted seeding on every device.  noise (n_draws, m), row i the
+    draw of step i for every row; log_d2 the log of every squared distance
+    (`_log32_table`: squared distances of integer colours are integers <=
+    _MAX_D2, and adding 1e-20 to one of them leaves it as it is); with w_pts
+    (B, m) the draws go in proportion to w * d^2 (the first to w)."""
+    b = points.shape[0]
+    dev = points.device
+    rows = torch.arange(b, device=dev)
+    neg_inf = torch.tensor(float("-inf"), device=dev)
+    n_draws = noise.shape[0]
+    if w_pts is None:
+        first_logits = torch.where(valid, torch.zeros((), device=dev), neg_inf)
+    else:
+        pos = valid & (w_pts > 0)
+        w_log = prng.log32(torch.where(pos, w_pts + 1e-20, torch.ones((), device=dev)))
+        first_logits = torch.where(pos, w_log, neg_inf)
+    first = torch.argmax(noise[0][None, :] + first_logits, dim=1)
+    centers = torch.zeros((b, k_max, 3), dtype=torch.float32, device=dev)
+    centers[:, 0] = points[rows, first]
+    min_d2 = ((points - points[rows, first][:, None, :]) ** 2).sum(dim=2)
+    min_d2 = torch.where(valid, min_d2, torch.zeros((), device=dev))
+    for i in range(1, n_draws):
+        g = noise[i]
+        if w_pts is None:
+            logits = torch.where(valid & (min_d2 > 0), log_d2[min_d2.long()], neg_inf)
+        else:
+            mass = min_d2 * w_pts
+            live = valid & (mass > 0)
+            mass = torch.where(live, _fma_tiny(min_d2, w_pts, 1e-20),
+                               torch.ones((), device=dev))
+            logits = torch.where(live, prng.log32(mass), neg_inf)
+        has = torch.isfinite(logits).any(dim=1, keepdim=True)
+        logits = torch.where(
+            has, logits, torch.where(valid, torch.zeros((), device=dev), neg_inf)
+        )
+        idx = torch.argmax(g[None, :] + logits, dim=1)
+        new_center = points[rows, idx]
+        active = (i < k)[:, None]
+        centers[:, i] = torch.where(active, new_center, centers[:, i])
+        d2_new = ((points - new_center[:, None, :]) ** 2).sum(dim=2)
+        min_d2 = torch.where(active, torch.minimum(min_d2, d2_new), min_d2)
+    return centers
+
+
 def kmeans_rows(
     points: torch.Tensor,
     valid: torch.Tensor,
@@ -278,7 +334,9 @@ def kmeans_rows(
     assignment pass, the Lloyd passes and the last: the sum over rows of
     valid points x that row's k, unpadded), `kmeans_noise.card` /
     `kmeans_noise.host` (one per k-means++ seeding, by where its noise was
-    drawn) and `kmeans_init.uniform` (one per uniform start;
+    drawn), `kmeans_seed.kernel` / `kmeans_seed.loop` (one per k-means++
+    seeding, by route: the card's kernel, or the plain loop on the CPU and
+    for weighted seeding) and `kmeans_init.uniform` (one per uniform start;
     `utils/timing.py`).
     """
     b, m, _ = points.shape
@@ -288,7 +346,6 @@ def kmeans_rows(
     center_valid = torch.arange(k_max, device=dev)[None, :] < k[:, None]
     rows = torch.arange(b, device=dev)
     key = prng.prng_key(seed)
-    neg_inf = torch.tensor(float("-inf"), device=dev)
     w_pts = None
     if weights is not None:
         w_pts = torch.where(valid, weights.to(device=dev, dtype=torch.float32),
@@ -299,41 +356,15 @@ def kmeans_rows(
             centers = init_centers.to(device=dev, dtype=torch.float32)
         elif plusplus:
             n_draws = max(int(kvec.max()), 1)
-            # Squared distances of integer colours are integers <= _MAX_D2, and
-            # adding 1e-20 to one of them leaves it as it is.
             log_d2 = _log32_table(dev)
             noise = _kmeans_noise(int(seed), m, n_draws, dev)
-            if w_pts is None:
-                first_logits = torch.where(valid, torch.zeros((), device=dev), neg_inf)
+            if _on_card(dev) and w_pts is None:
+                timing.count("kmeans_seed.kernel", 1)
+                centers = KPP.kmeanspp_centers(points.contiguous(), valid.contiguous(), k, noise,
+                                               log_d2, k_max)
             else:
-                pos = valid & (w_pts > 0)
-                w_log = prng.log32(torch.where(pos, w_pts + 1e-20, torch.ones((), device=dev)))
-                first_logits = torch.where(pos, w_log, neg_inf)
-            first = torch.argmax(noise[0][None, :] + first_logits, dim=1)
-            centers = torch.zeros((b, k_max, 3), dtype=torch.float32, device=dev)
-            centers[:, 0] = points[rows, first]
-            min_d2 = ((points - points[rows, first][:, None, :]) ** 2).sum(dim=2)
-            min_d2 = torch.where(valid, min_d2, torch.zeros((), device=dev))
-            for i in range(1, n_draws):
-                g = noise[i]
-                if w_pts is None:
-                    logits = torch.where(valid & (min_d2 > 0), log_d2[min_d2.long()], neg_inf)
-                else:
-                    mass = min_d2 * w_pts
-                    live = valid & (mass > 0)
-                    mass = torch.where(live, _fma_tiny(min_d2, w_pts, 1e-20),
-                                       torch.ones((), device=dev))
-                    logits = torch.where(live, prng.log32(mass), neg_inf)
-                has = torch.isfinite(logits).any(dim=1, keepdim=True)
-                logits = torch.where(
-                    has, logits, torch.where(valid, torch.zeros((), device=dev), neg_inf)
-                )
-                idx = torch.argmax(g[None, :] + logits, dim=1)
-                new_center = points[rows, idx]
-                active = (i < k)[:, None]
-                centers[:, i] = torch.where(active, new_center, centers[:, i])
-                d2_new = ((points - new_center[:, None, :]) ** 2).sum(dim=2)
-                min_d2 = torch.where(active, torch.minimum(min_d2, d2_new), min_d2)
+                timing.count("kmeans_seed.loop", 1)
+                centers = _plusplus_loop(points, valid, k, noise, log_d2, k_max, w_pts)
         else:
             timing.count("kmeans_init.uniform", 1)
             u = torch.from_numpy(prng.uniform(key, (m,))).to(dev)

@@ -46,3 +46,41 @@ def weighted_problem(rng, b, m, n_valid, w_max):
     w = rng.integers(1, w_max, (b, m))
     w = np.where(rng.random((b, m)) < heavy, rng.integers(2**24 // 255 + 1, 400_000, (b, m)), w)
     return pts, valid, w.astype(np.float32) * valid
+
+
+# (B, m, k_max, kind) of the k-means++ seeding, kernel against plain loop:
+# tier 1's single wide rows (16,384-131,072 points, and 262,144, whose slices
+# stream from global memory), the split buckets' many narrow rows, and rows
+# that take the no-finite-logit fallback ("few": fewer distinct colours than
+# k), that tie ("ties": duplicate points and noise of repeated values) or that
+# are mostly invalid ("sparse", one row with no valid point and one with a
+# single one)
+KMEANSPP_CASES = [
+    (1, 16_384, 256, "clumps"), (1, 32_768, 256, "clumps"), (1, 65_536, 128, "clumps"),
+    (1, 131_072, 64, "clumps"), (2, 65_536, 32, "sparse"), (2, 1_024, 2, "ties"),
+    (8, 1_024, 256, "few"), (8, 16_384, 16, "ties"), (200, 64, 8, "clumps"),
+    (200, 64, 64, "few"), (200, 1_024, 32, "sparse"), (8, 32_768, 100, "ties"),
+    (1, 262_144, 32, "clumps"),
+]
+
+
+def seeding_problem(rng, b, m, k_max, kind):
+    """Points, valid flags and a different k in each row (the first at k_max,
+    the last, where b > 2, at 1) for a KMEANSPP_CASES kind."""
+    if kind == "clumps":
+        pts, valid = kmeans_problem(rng, b, m, rng.integers(m // 2, m + 1, b))
+    else:
+        n = {"few": 3, "ties": 20, "sparse": 4096}[kind]
+        palette = rng.integers(0, 256, (b, n, 3))
+        pick = rng.integers(0, n, (b, m))
+        pts = np.take_along_axis(palette, pick[..., None].repeat(3, -1), 1).astype(np.float32)
+        valid = rng.random((b, m)) < (0.03 if kind == "sparse" else 0.9)
+        if kind == "sparse":
+            valid[0] = False
+            valid[-1] = np.arange(m) == m // 2
+        pts[~valid] = 0.0
+    ks = rng.integers(1, k_max + 1, b)
+    ks[0] = k_max
+    if b > 2:
+        ks[-1] = 1
+    return pts, valid, ks
