@@ -496,8 +496,8 @@ def median_ms(fn, reps=5) -> float:
 
 def count_device_calls(fn, tries=3) -> dict:
     """Kernels, copies/memsets and host synchronisations of one call of `fn`,
-    read from a profiler trace, and the loop kernel's launches by its
-    wrapper's count.  The profiler now and then hands back a trace of so short
+    read from a profiler trace, and the loop kernel's launches by the launch
+    record.  The profiler now and then hands back a trace of so short
     a window without the card's kernels (the host's side is there, sometimes
     a copy); every call launches at least one kernel, so such a trace is
     incomplete: it is asked again, and after `tries` such traces `kernels`
@@ -506,14 +506,12 @@ def count_device_calls(fn, tries=3) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from roibasedimagecompression_torch.ops.cuda import epscc as EPS
-
     for _ in range(tries):
-        before = EPS.launches
+        before = sum(eps_loop_shapes().values())
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        loop_launches = EPS.launches - before
+        loop_launches = sum(eps_loop_shapes().values()) - before
         kernels, copies, syncs = [], 0, 0
         for ev in prof.events():
             on_card = ev.device_type == torch.autograd.DeviceType.CUDA
@@ -736,54 +734,62 @@ def seg_agreement(img, config, device_a, device_b) -> float:
     return float(np.mean(a == b))
 
 
+def eps_loop_shapes() -> dict:
+    """(B, N) -> launches of the eps loop kernel in the launch record (the
+    record's other `epscc` keys are the lone sweep's, ("sweep", B, N))."""
+    from roibasedimagecompression_torch.ops.cuda import _build
+
+    return {key: n for key, n in _build.launched["epscc"].items() if key[0] != "sweep"}
+
+
 def reset_counts() -> None:
-    """Set every kernel's launch count to 0: called just before a path runs."""
-    from roibasedimagecompression_torch.ops.cuda import epscc as EPS
-    from roibasedimagecompression_torch.ops.cuda import gumbel as GUMBEL
-    from roibasedimagecompression_torch.ops.cuda import kmeanspp as KPP
-    from roibasedimagecompression_torch.ops.cuda import slic_assign as SA
+    """Clear the kernels' launch record and the program's counters: called
+    just before a path runs."""
+    from roibasedimagecompression_torch.ops.cuda import _build
     from roibasedimagecompression_torch.utils import timing
 
     timing.reset_stages()
-    SA.launches = EPS.launches = EPS.sweep_launches = EPS.rounds = GUMBEL.launches = KPP.launches = 0
-    SA.launches_by_form.clear()
-    SA.launch_shapes.clear()
-    EPS.loop_shapes.clear()
-    GUMBEL.launch_shapes.clear()
-    KPP.launch_shapes.clear()
+    _build.reset_launches()
 
 
 def read_counts():
-    """(launch counts, launch-shape histograms) since reset_counts."""
-    from roibasedimagecompression_torch.ops.cuda import epscc as EPS
-    from roibasedimagecompression_torch.ops.cuda import gumbel as GUMBEL
-    from roibasedimagecompression_torch.ops.cuda import kmeanspp as KPP
-    from roibasedimagecompression_torch.ops.cuda import slic_assign as SA
+    """(launch counts, launch-shape histograms) since reset_counts, read from
+    the kernels' launch record and the program's counters."""
+    from roibasedimagecompression_torch.ops.cuda import _build
     from roibasedimagecompression_torch.utils import timing
 
-    launched_shapes["slic_assign"].update(SA.launch_shapes)
-    launched_shapes["eps_components"].update(EPS.loop_shapes)
-    launched_shapes["gumbel"].update(GUMBEL.launch_shapes)
-    launched_shapes["kmeanspp"].update(KPP.launch_shapes)
+    rec = _build.launched
+    sa = rec["slic_assign"]
+    loop = eps_loop_shapes()
+    launched_shapes["slic_assign"].update(sa)
+    launched_shapes["eps_components"].update(loop)
+    launched_shapes["gumbel"].update(rec["gumbel"])
+    launched_shapes["kmeanspp"].update(rec["kmeanspp"])
     counters = timing.counters()
-    launches = {"slic_assign": SA.launches, "slic_assign_expanded": SA.launches_by_form["expanded"],
-                "slic_assign_direct": SA.launches_by_form["direct"], "eps_components": EPS.launches,
-                "eps_sweep_alone": EPS.sweep_launches, "eps_rounds": EPS.rounds,
-                "gumbel": GUMBEL.launches, "kmeanspp": KPP.launches,
+
+    def by_form(form):
+        return sum(n for key, n in sa.items() if key[0] == form)
+
+    launches = {"slic_assign": sa.total(), "slic_assign_expanded": by_form("expanded"),
+                "slic_assign_direct": by_form("direct"), "eps_components": sum(loop.values()),
+                "eps_sweep_alone": rec["epscc"].total() - sum(loop.values()),
+                "eps_rounds": counters.get("eps_rounds", 0),
+                "gumbel": rec["gumbel"].total(), "kmeanspp": rec["kmeanspp"].total(),
                 "kmeans_seed.kernel": counters.get("kmeans_seed.kernel", 0),
                 "kmeans_seed.loop": counters.get("kmeans_seed.loop", 0)}
     shapes = {
-        "slic_assign (form, B, MP, K)": {str(k): v for k, v in sorted(SA.launch_shapes.items())},
-        "eps loop (B, N)": {str(k): v for k, v in sorted(EPS.loop_shapes.items())},
-        "gumbel (seed, n_draws, m)": {str(k): v for k, v in sorted(GUMBEL.launch_shapes.items())},
-        "kmeanspp (B, m, n_draws, k_max)": {str(k): v for k, v in sorted(KPP.launch_shapes.items())},
+        "slic_assign (form, B, MP, K)": {str(k): v for k, v in sorted(sa.items())},
+        "eps loop (B, N)": {str(k): v for k, v in sorted(loop.items())},
+        "gumbel (seed, n_draws, m)": {str(k): v for k, v in sorted(rec["gumbel"].items())},
+        "kmeanspp (B, m, n_draws, k_max)": {str(k): v for k, v in sorted(rec["kmeanspp"].items())},
     }
     return launches, shapes
 
 
 def check_seedings(launches, what) -> None:
-    """On an unweighted path every k-means++ seeding is one launch of kernel
-    4, beside one noise draw of kernel 3, and none takes the plain loop."""
+    """On an unweighted path every k-means++ seeding (`kmeans_seed.kernel`)
+    is one launch of kernel 4 in the launch record, beside one noise draw of
+    kernel 3, and none takes the plain loop."""
     check(launches["kmeanspp"] == launches["kmeans_seed.kernel"] == launches["gumbel"]
           and launches["kmeans_seed.loop"] == 0,
           f"{what} seeded k-means++ off the kernel: {launches}")

@@ -83,6 +83,10 @@ def slic_scale_factor(max_dim: int) -> float:
 # Palette size at which clustering switches from DBSCAN to k-means.
 KMEANS_SWITCH_COLORS = 10_000
 
+# Largest padded k at which k-means starts from k-means++ (above it, the
+# seeded uniform start).
+KMEANSPP_MAX_K = 256
+
 
 def kmeans_n_clusters(n_colors: int, quality: float) -> int:
     """Cluster count for the large-palette k-means path: ceil(n * (q/100) / 10)."""

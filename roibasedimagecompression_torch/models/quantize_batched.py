@@ -218,11 +218,11 @@ def _epscc_labels_device(color_of_pair, starts, sizes, eps, cap, device, mesh=No
     buf[flat_row * cap + within] = color_of_pair[flat_pos]
     buf[bp * cap :] = (np.asarray(SHARD.pad_to(np.asarray(eps), bp), np.float32) ** 2).view(np.int32)
     dev_buf = torch.from_numpy(buf).to(device)
-    labels, _ = DISPATCH.submit(
+    labels, _ = DISPATCH.call(
         EPS.eps_components_packed,
         SHARD.shard_rows(dev_buf[: bp * cap].view(bp, cap), mesh),
         SHARD.shard_rows(dev_buf[bp * cap :].view(torch.float32), mesh),
-    ).result()
+    )
     return labels.cpu().numpy()[flat_row, within]
 
 
@@ -695,11 +695,12 @@ def _kmeans_bucket(colors_dev, order_dev, starts_b, sizes_b, ks_b, cap, k_max, s
     w = None if weights_dev is None else weights_dev[idx] * valid
     init = None if inits is None else torch.from_numpy(SHARD.pad_to(inits, bp)).to(dev)
     rows = [SHARD.shard_rows(x, mesh) for x in (pts, valid, SHARD.pad_to(np.asarray(ks_b), bp))]
-    labels = DISPATCH.submit(
-        CL.kmeans_rows, *rows, k_max=k_max, iters=10, seed=seed, plusplus=k_max <= 256,
+    labels = DISPATCH.call(
+        CL.kmeans_rows, *rows, k_max=k_max, iters=10, seed=seed,
+        plusplus=k_max <= cfg.KMEANSPP_MAX_K,
         init_centers=None if init is None else SHARD.shard_rows(init, mesh),
         weights=None if w is None else SHARD.shard_rows(w, mesh),
-    ).result()
+    )
     return labels[:b].cpu().numpy()
 
 

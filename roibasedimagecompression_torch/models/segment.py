@@ -277,11 +277,11 @@ def split_scores_many(
                     rows.append((np.ascontiguousarray(c), np.ascontiguousarray(m)))
             rgb_b, mask_b = _bucket_rows(rows, ph, pw, device)
             bp = SHARD.pad_rows(len(rows), mesh)
-            scores = DISPATCH.submit(
+            scores = DISPATCH.call(
                 _split_score_batch,
                 SHARD.shard_rows(SHARD.pad_to(rgb_b, bp), mesh),
                 SHARD.shard_rows(SHARD.pad_to(mask_b, bp), mesh),
-            ).result()
+            )
             overall, color, texture, count = SHARD.collect_all(scores)
             for row, (i, _) in enumerate(items):
                 if count[row] < 100:

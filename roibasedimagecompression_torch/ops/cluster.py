@@ -29,6 +29,7 @@ import functools
 import numpy as np
 import torch
 
+from roibasedimagecompression_torch import config as cfg
 from roibasedimagecompression_torch.ops import prng
 from roibasedimagecompression_torch.ops import xla_order as XO
 from roibasedimagecompression_torch.ops.colors import fma32
@@ -89,13 +90,10 @@ def _gumbel_table(seed: int, m: int, n_draws: int) -> np.ndarray:
 def _kmeans_noise(seed: int, m: int, n_draws: int, dev: torch.device) -> torch.Tensor:
     """`_gumbel_table(seed, m, n_draws)` on `dev`: on a CUDA device drawn there
     by the kernel (`ops/cuda/gumbel.py`, the same bits) inside the span
-    `kmeans.noise`, counted as `kmeans_noise.card`; elsewhere the host table,
-    counted as `kmeans_noise.host`."""
+    `kmeans.noise`; elsewhere the host table."""
     if dev.type == "cuda":
-        timing.count("kmeans_noise.card", 1)
         with stage_timer("kmeans.noise"):
             return GUMBEL.gumbel_table(seed, m, n_draws, dev)
-    timing.count("kmeans_noise.host", 1)
     return torch.tensor(_gumbel_table(seed, m, n_draws), device=dev)
 
 
@@ -332,12 +330,10 @@ def kmeans_rows(
     `kmeans.lloyd` (the loop and the last assignment), and the counters
     `kmeans_iters` (Lloyd iterations run), `kmeans_assign_pairs` (over every
     assignment pass, the Lloyd passes and the last: the sum over rows of
-    valid points x that row's k, unpadded), `kmeans_noise.card` /
-    `kmeans_noise.host` (one per k-means++ seeding, by where its noise was
-    drawn), `kmeans_seed.kernel` / `kmeans_seed.loop` (one per k-means++
-    seeding, by route: the card's kernel, or the plain loop on the CPU and
-    for weighted seeding) and `kmeans_init.uniform` (one per uniform start;
-    `utils/timing.py`).
+    valid points x that row's k, unpadded), `kmeans_seed.kernel` /
+    `kmeans_seed.loop` (one per k-means++ seeding, by route: the card's
+    kernel, or the plain loop on the CPU and for weighted seeding) and
+    `kmeans_init.uniform` (one per uniform start; `utils/timing.py`).
     """
     b, m, _ = points.shape
     dev = points.device
@@ -449,12 +445,13 @@ def kmeans_host_many(problems: list, device, *, seed: int = 42, iters: int = 25)
         pts[0, :n] = points
         valid = np.zeros((1, n_pad), bool)
         valid[0, :n] = True
-        labels = DISPATCH.submit(
+        labels = DISPATCH.call(
             kmeans_rows, torch.from_numpy(pts).to(device), torch.from_numpy(valid).to(device),
-            np.asarray([k]), k_max=k_max, iters=iters, seed=seed, plusplus=k_max <= 256,
+            np.asarray([k]), k_max=k_max, iters=iters, seed=seed,
+            plusplus=k_max <= cfg.KMEANSPP_MAX_K,
         )
         pending.append((n, labels))
-    collected = iter(SHARD.collect_all([lab.result()[0] for _, lab in pending if lab is not None]))
+    collected = iter(SHARD.collect_all([lab[0] for _, lab in pending if lab is not None]))
     return [np.zeros(n, np.int32) if lab is None else next(collected)[:n] for n, lab in pending]
 
 

@@ -7,10 +7,16 @@ release line), then loaded with ctypes.  Nothing is built when a module is
 imported: the first launch builds, or `build_all()` builds every kernel at
 once with one nvcc process per source, started together (`prebuild()` does
 so under the loader's lock, as `utils/warmup.py prewarm` calls it).
+
+Every launch goes through `launch`, which loads the library, launches on the
+device's current stream and records the launch in `launched`: for each
+kernel source a `Counter` from the wrapper's shape key of a launch to the
+count of such launches since the last `reset_launches`.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 import shutil
@@ -50,6 +56,11 @@ NVCC_FLAGS = [
 _lock = threading.Lock()
 _libs: dict = {}
 build_log: dict = {}
+
+# kernel source -> Counter(shape key -> launches); cleared in place, so a
+# reader may keep a reference to one Counter.
+launched = {name: collections.Counter() for name in KERNELS}
+_launched_lock = threading.Lock()  # encode_stream launches from several threads
 
 
 def _nvcc() -> str:
@@ -136,9 +147,13 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def launch(lib: ctypes.CDLL, fn_name: str, device: torch.device, *args) -> None:
-    """Call the launch function `fn_name(*args, stream)` with `device`'s
-    current stream, on that device, and raise if it returns a CUDA error."""
+def launch(name: str, fn_name: str, device: torch.device, *args, key=None) -> None:
+    """Call the launch function `fn_name(*args, stream)` of kernel source
+    `name` with `device`'s current stream, on that device, and raise if it
+    returns a CUDA error.  A launch given a shape `key` is recorded under it
+    in `launched[name]`; one without (a helper launch that precedes a counted
+    one) is not."""
+    lib = load(name)
     index = torch.cuda.current_device() if device.index is None else device.index
     stream = torch.cuda.current_stream(index).cuda_stream
     if index == torch.cuda.current_device():
@@ -148,3 +163,13 @@ def launch(lib: ctypes.CDLL, fn_name: str, device: torch.device, *args) -> None:
             rc = getattr(lib, fn_name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name} failed: {lib.kernel_error_string(rc).decode()}")
+    if key is not None:
+        with _launched_lock:
+            launched[name][key] += 1
+
+
+def reset_launches() -> None:
+    """Clear every kernel's launch record in place."""
+    with _launched_lock:
+        for counter in launched.values():
+            counter.clear()

@@ -16,21 +16,13 @@ so the count of sweeps may differ between the two and the labels may not.
 
 from __future__ import annotations
 
-import collections
-import threading
-
 import torch
 
 from roibasedimagecompression_torch.ops.cuda import _build
 from roibasedimagecompression_torch.utils import flops as FLOPS
+from roibasedimagecompression_torch.utils import timing
 
 INT_MAX = 2**31 - 1
-
-launches = 0  # loop kernel (eps_components_kernel) launches since the last reset (chip_smoke reads it)
-sweep_launches = 0  # launches of the single sweep (eps_sweep_kernel) since the last reset
-rounds = 0  # rounds the loop kernel reported back since the last reset; not a launch count
-loop_shapes: collections.Counter = collections.Counter()  # (B, N) of every loop launch
-_count_lock = threading.Lock()  # encode_stream launches from several threads
 
 
 def eps_sweep_ref(points, labels, valid, groups, eps2) -> torch.Tensor:
@@ -63,12 +55,13 @@ def packed_adjacency(packed_i: torch.Tensor, packed_j: torch.Tensor, eps2: torch
     return d2 <= torch.floor(eps2).long()
 
 
-def _pack(lib, dev, b, n, points, rows, valid, groups, eps2, fill_labels: bool):
-    """Launch the pack kernel; (packed, gcol, fill, meta) on the card."""
+def _pack(dev, b, n, points, rows, valid, groups, eps2, fill_labels: bool):
+    """Launch the pack kernel; (packed, gcol, fill, meta) on the card.  Not
+    recorded in `_build.launched`: it precedes every sweep and loop launch."""
     packed, gcol, fill = torch.empty((3, b, n), dtype=torch.int32, device=dev)
     meta = torch.empty(4 * b + 4, dtype=torch.int32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
-    _build.launch(lib, "eps_pack_launch", dev, ptr(points), ptr(rows), ptr(valid), ptr(groups),
+    _build.launch("epscc", "eps_pack_launch", dev, ptr(points), ptr(rows), ptr(valid), ptr(groups),
                   eps2.data_ptr(), packed.data_ptr(), gcol.data_ptr(), fill.data_ptr(),
                   int(fill_labels), meta.data_ptr(), b, n)
     return packed, gcol, fill, meta
@@ -78,7 +71,6 @@ def eps_sweep(points, labels, valid, groups, eps2) -> torch.Tensor:
     """One sweep: points (B, N, 3) f32 holding integers in [0, 255], labels and
     groups (B, N) int32, valid (B, N) uint8, eps2 (B,) f32 -> (B, N) int32
     (INT_MAX where no neighbor)."""
-    global sweep_launches
     b, n = labels.shape
     if points.shape != (b, n, 3) or valid.shape != (b, n) or groups.shape != (b, n) or eps2.shape != (b,):
         raise ValueError("eps_sweep: inconsistent shapes")
@@ -95,35 +87,30 @@ def eps_sweep(points, labels, valid, groups, eps2) -> torch.Tensor:
         raise ValueError(f"unsupported device {dev}")
     if not all(t.is_contiguous() for t in (points, labels, valid, groups, eps2)):
         raise ValueError("eps_sweep takes contiguous tensors")
-    lib = _build.load("epscc")
-    packed, gcol, out, meta = _pack(lib, dev, b, n, points, None, valid, groups, eps2, False)
-    _build.launch(lib, "eps_sweep_launch", dev, packed.data_ptr(), groups.data_ptr(),
-                  gcol.data_ptr(), labels.data_ptr(), out.data_ptr(), meta.data_ptr(), b, n)
-    with _count_lock:
-        sweep_launches += 1
+    packed, gcol, out, meta = _pack(dev, b, n, points, None, valid, groups, eps2, False)
+    _build.launch("epscc", "eps_sweep_launch", dev, packed.data_ptr(), groups.data_ptr(),
+                  gcol.data_ptr(), labels.data_ptr(), out.data_ptr(), meta.data_ptr(), b, n,
+                  key=("sweep", b, n))
     return out
 
 
 def enqueue_components(b, n, dev, points, rows, valid, groups, eps2):
     """Enqueue the pack kernel and the loop kernel on the current stream and
     return (labels, meta) on the card without waiting for either: what a
-    caller times by CUDA events to see the loop's device time alone."""
-    global launches
-    lib = _build.load("epscc")
-    packed, gcol, lab, meta = _pack(lib, dev, b, n, points, rows, valid, groups, eps2, True)
+    caller times by CUDA events to see the loop's device time alone.  The
+    loop's launch is recorded under (B, N), the lone sweep's under ("sweep",
+    B, N)."""
+    packed, gcol, lab, meta = _pack(dev, b, n, points, rows, valid, groups, eps2, True)
     boxes = torch.empty((b, -(-n // 256), 2), dtype=torch.int32, device=dev)
-    _build.launch(lib, "eps_components_launch", dev, packed.data_ptr(), gcol.data_ptr(),
-                  lab.data_ptr(), meta.data_ptr(), boxes.data_ptr(), b, n)
-    with _count_lock:
-        launches += 1
-        loop_shapes[(b, n)] += 1
+    _build.launch("epscc", "eps_components_launch", dev, packed.data_ptr(), gcol.data_ptr(),
+                  lab.data_ptr(), meta.data_ptr(), boxes.data_ptr(), b, n, key=(b, n))
     return lab, meta
 
 
 def _components_cuda(b, n, dev, points, rows, valid, groups, eps2):
     """Pack, run the loop kernel, read back the round count: 2 launches and
-    one device-to-host read per call."""
-    global rounds
+    one device-to-host read per call.  The rounds are counted as `eps_rounds`
+    (`utils/timing.py`)."""
     if b == 0 or n == 0:
         return torch.empty((b, n), dtype=torch.int32, device=dev), 0
     lab, meta = enqueue_components(b, n, dev, points, rows, valid, groups, eps2)
@@ -131,8 +118,7 @@ def _components_cuda(b, n, dev, points, rows, valid, groups, eps2):
     if int(meta[4 * b + 2]):
         raise ValueError("eps components: colours must be integers in [0, 255]")
     sweeps = int(meta[3 : 4 * b : 4].max()) + 2
-    with _count_lock:
-        rounds += sweeps
+    timing.count("eps_rounds", sweeps)
     if FLOPS.enabled():
         FLOPS.add(12 * _valid_pairs(rows, valid, groups) * sweeps,
                   b * n * (4 if rows is not None else 17) + b * n * 4)

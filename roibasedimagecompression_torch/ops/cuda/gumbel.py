@@ -19,24 +19,20 @@ plain expression unfused).  The plain version is the host table itself,
 
 from __future__ import annotations
 
-import collections
 import threading
 
 import numpy as np
 import torch
 
+from roibasedimagecompression_torch import config as cfg
 from roibasedimagecompression_torch.ops import prng
 from roibasedimagecompression_torch.ops.cuda import _build
 from roibasedimagecompression_torch.utils import flops as FLOPS
 
-launches = 0  # kernel launches since the last reset (chip_smoke reads it)
-launch_shapes: collections.Counter = collections.Counter()  # (seed, n_draws, m) of every table drawn
-_count_lock = threading.Lock()  # encode_stream launches from several threads
-
 # Sub-keys of the codec's widest k-means++ call (every caller seeds k-means++
-# only at k_max <= 256): one chain of this length a seed and device serves
-# them all.  A longer request gets a chain of its own, not kept.
-_CHAIN = 256
+# only up to `config.KMEANSPP_MAX_K`): one chain of this length a seed and
+# device serves them all.  A longer request gets a chain of its own, not kept.
+_CHAIN = cfg.KMEANSPP_MAX_K
 _chains: dict = {}  # (seed, device) -> (_CHAIN, 2) int32 sub-key bits on the device
 _chain_lock = threading.Lock()
 
@@ -69,23 +65,21 @@ def subkeys(seed: int, n: int, device) -> torch.Tensor:
         return chain
 
 
-def gumbel_rows(keys: torch.Tensor, m: int) -> torch.Tensor:
+def gumbel_rows(keys: torch.Tensor, m: int, seed: int) -> torch.Tensor:
     """(n, m) float32 Gumbel noise, row i drawn under sub-key keys[i]: keys
-    (n, 2) int32 sub-key bits on a CUDA device, n <= 65535.  One kernel
-    launch on the current stream."""
-    global launches
+    (n, 2) int32 sub-key bits on a CUDA device, n <= 65535, the first n of
+    `seed`'s chain.  One kernel launch on the current stream, recorded
+    under (seed, n, m)."""
     if keys.dim() != 2 or keys.shape[1] != 2 or keys.dtype != torch.int32:
         raise ValueError(f"keys must be (n, 2) int32, got {tuple(keys.shape)} {keys.dtype}")
     if not 1 <= keys.shape[0] <= 65535 or not 1 <= m < 2**31:
         raise ValueError(f"need 1 <= n <= 65535 and 1 <= m < 2^31, got {keys.shape[0]}, {m}")
     if keys.device.type != "cuda" or not keys.is_contiguous():
         raise ValueError(f"keys must be a contiguous CUDA tensor, got {keys.device}")
-    lib = _build.load("gumbel")
     n = keys.shape[0]
     out = torch.empty((n, m), dtype=torch.float32, device=keys.device)
-    _build.launch(lib, "gumbel_launch", keys.device, keys.data_ptr(), out.data_ptr(), n, m)
-    with _count_lock:
-        launches += 1
+    _build.launch("gumbel", "gumbel_launch", keys.device, keys.data_ptr(), out.data_ptr(), n, m,
+                  key=(int(seed), n, m))
     # 61 float operations an element (a fused multiply-add counts two), 4
     # bytes written; threefry's integer work is not counted.
     FLOPS.add(61 * n * m, 4 * n * m + 8 * n)
@@ -95,7 +89,4 @@ def gumbel_rows(keys: torch.Tensor, m: int) -> torch.Tensor:
 def gumbel_table(seed: int, m: int, n_draws: int, device) -> torch.Tensor:
     """(n_draws, m) float32: the k-means++ noise of `seed` on `device`, equal
     bit for bit to `ops/cluster.py _gumbel_table(seed, m, n_draws)`."""
-    out = gumbel_rows(subkeys(seed, n_draws, device)[:n_draws], m)
-    with _count_lock:
-        launch_shapes[(int(seed), n_draws, m)] += 1
-    return out
+    return gumbel_rows(subkeys(seed, n_draws, device)[:n_draws], m, seed)

@@ -17,18 +17,12 @@ buffer beyond 10,240 points a block).
 
 from __future__ import annotations
 
-import collections
 import operator
-import threading
 
 import torch
 
 from roibasedimagecompression_torch.ops.cuda import _build
 from roibasedimagecompression_torch.utils import flops as FLOPS
-
-launches = 0  # kernel launches since the last reset (chip_smoke reads it)
-launch_shapes: collections.Counter = collections.Counter()  # (B, m, n_draws, k_max) of every launch
-_count_lock = threading.Lock()  # encode_stream launches from several threads
 
 _NARROW = 4096     # points a row up to which one block seeds it
 _ON_CHIP = 10_240  # points a block keeps in shared memory (5 floats each, 200 KiB; csrc kOnChip)
@@ -69,9 +63,9 @@ def kmeanspp_centers(points: torch.Tensor, valid: torch.Tensor, k: torch.Tensor,
     row; log_table float32, the log of every squared distance
     (`ops/cluster.py _log32_table`).  All contiguous on one CUDA device.
     Raises for anything else, weights included (the weighted form has no
-    kernel): it never falls back.
+    kernel): it never falls back.  The launch is recorded under (B, m,
+    n_draws, k_max).
     """
-    global launches
     if weights is not None:
         raise ValueError("weighted k-means++ has no kernel: ops/cluster.py _plusplus_loop seeds it")
     if not torch.is_tensor(points) or points.dim() != 3 or not torch.is_tensor(noise) or noise.dim() != 2:
@@ -94,19 +88,15 @@ def kmeanspp_centers(points: torch.Tensor, valid: torch.Tensor, k: torch.Tensor,
                          "(the CPU seeds with ops/cluster.py _plusplus_loop)")
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    lib = _build.load("kmeanspp")
     cluster, threads, slice_, on_chip = plan(m)
     if cluster * b >= 2**31:
         raise ValueError(f"{b} rows of {cluster} blocks pass the grid's limit")
     out = torch.empty((b, k_max, 3), dtype=torch.float32, device=dev)
     scratch = None if on_chip else torch.empty(cluster * b * 5 * slice_, dtype=torch.float32, device=dev)
-    _build.launch(lib, "kmeanspp_launch", dev, points.data_ptr(), valid.data_ptr(), k.data_ptr(),
+    _build.launch("kmeanspp", "kmeanspp_launch", dev, points.data_ptr(), valid.data_ptr(), k.data_ptr(),
                   noise.data_ptr(), log_table.data_ptr(), log_table.numel(), out.data_ptr(),
                   None if scratch is None else scratch.data_ptr(), b, m, n_draws, k_max, cluster,
-                  threads, slice_)
-    with _count_lock:
-        launches += 1
-        launch_shapes[(b, m, n_draws, k_max)] += 1
+                  threads, slice_, key=(b, m, n_draws, k_max))
     if FLOPS.enabled():
         # 12 operations a point and step after the first (3 subtractions, 3
         # multiplications, 2 adds, the minimum, the noise's add, two

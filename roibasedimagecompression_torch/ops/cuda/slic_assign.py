@@ -23,9 +23,6 @@ follows that and equals XLA's distances bit for bit.
 
 from __future__ import annotations
 
-import collections
-import threading
-
 import torch
 
 from roibasedimagecompression_torch.ops.colors import fma32
@@ -33,18 +30,7 @@ from roibasedimagecompression_torch.ops.cuda import _build
 from roibasedimagecompression_torch.utils import flops as FLOPS
 
 FORMS = ("direct", "expanded")
-launches = 0  # kernel launches of both forms since the last reset (chip_smoke reads it)
-launches_by_form: collections.Counter = collections.Counter()  # form -> launches
-launch_shapes: collections.Counter = collections.Counter()  # (form, B, MP, K) of every launch
-_count_lock = threading.Lock()  # encode_stream launches from several threads
-
-
-def _count(form: str, b: int, mp: int, k: int) -> None:
-    global launches
-    with _count_lock:
-        launches += 1
-        launches_by_form[form] += 1
-        launch_shapes[(form, b, mp, k)] += 1
+launch_shapes = _build.launched["slic_assign"]  # (form, B, MP, K) -> launches
 
 
 def _check(feats: torch.Tensor, centers: torch.Tensor) -> None:
@@ -124,13 +110,11 @@ def slic_assign(feats: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     _check(feats, centers)
     if feats.device.type == "cpu":
         return slic_assign_ref(feats, centers)
-    lib = _build.load("slic_assign")
     b, mp, _ = feats.shape
-    out = torch.empty((b, mp), dtype=torch.int32, device=feats.device)
-    _build.launch(lib, "slic_assign_launch", feats.device, feats.data_ptr(), centers.data_ptr(),
-                  out.data_ptr(), b, mp, centers.shape[1])
-    _count("direct", b, mp, centers.shape[1])
     k = centers.shape[1]
+    out = torch.empty((b, mp), dtype=torch.int32, device=feats.device)
+    _build.launch("slic_assign", "slic_assign_launch", feats.device, feats.data_ptr(),
+                  centers.data_ptr(), out.data_ptr(), b, mp, k, key=("direct", b, mp, k))
     FLOPS.add(17 * b * mp * k, 4 * (b * mp * 5 + b * k * 5 + b * mp))
     return out
 
@@ -147,13 +131,12 @@ def slic_assign_expanded(feats: torch.Tensor, centers: torch.Tensor,
         raise ValueError("center_valid is on another device")
     if feats.device.type == "cpu":
         return slic_assign_expanded_ref(feats, centers, center_valid)
-    lib = _build.load("slic_assign")
     b, mp, _ = feats.shape
+    k = centers.shape[1]
     valid_u8 = center_valid.to(torch.uint8).contiguous()
     out = torch.empty((b, mp), dtype=torch.int32, device=feats.device)
-    _build.launch(lib, "slic_assign_expanded_launch", feats.device, feats.data_ptr(),
-                  centers.data_ptr(), valid_u8.data_ptr(), out.data_ptr(), b, mp, centers.shape[1])
-    _count("expanded", b, mp, centers.shape[1])
-    k = centers.shape[1]
+    _build.launch("slic_assign", "slic_assign_expanded_launch", feats.device, feats.data_ptr(),
+                  centers.data_ptr(), valid_u8.data_ptr(), out.data_ptr(), b, mp, k,
+                  key=("expanded", b, mp, k))
     FLOPS.add(15 * b * mp * k, 4 * (b * mp * 5 + b * k * 5 + b * mp) + b * k)
     return out

@@ -369,10 +369,10 @@ def slic_many(
             rows = [SHARD.shard_rows(SHARD.pad_to(x, bp), mesh) for x in (
                 rgb_b, core_masks, torch.from_numpy(cyx).to(device),
                 torch.from_numpy(cval).to(device), torch.from_numpy(steps).to(device))]
-            assign_b = DISPATCH.submit(
+            assign_b = DISPATCH.call(
                 _slic_core_batch, *rows,
                 iters=iters, compactness=float(compactness), sigma=float(sigma),
-            ).result()[:bsz].cpu().numpy()
+            )[:bsz].cpu().numpy()
         with stage_timer("slic.conn"):
             labels_rows = _enforce_connectivity_bucket(
                 assign_b, masks_b, ids, metas, min_size_factor, device, mesh
@@ -416,9 +416,9 @@ def _enforce_connectivity_bucket(assign_b, masks_b, ids, metas, min_size_factor,
         return SHARD.shard_rows(SHARD.pad_to(torch.from_numpy(a).to(device), bp), mesh)
 
     with stage_timer("slic.frag"):
-        frag_b = DISPATCH.submit(
+        frag_b = DISPATCH.call(
             CC.propagate_equal_labels, rows(assign_b.astype(np.int32)), rows(masks_b), connectivity=4
-        ).result()[:bsz].cpu().numpy()
+        )[:bsz].cpu().numpy()
     compact_b = np.zeros(assign_b.shape, np.int32)
     keep_b = np.zeros(assign_b.shape, bool)
     for row, i in enumerate(ids):
@@ -435,7 +435,7 @@ def _enforce_connectivity_bucket(assign_b, masks_b, ids, metas, min_size_factor,
         compact_b[row][fg] = inv
         keep_b[row][fg] = keep_frag[inv]
     with stage_timer("slic.adopt"):
-        adopted = DISPATCH.submit(
+        adopted = DISPATCH.call(
             CC.adopt_labels, rows(compact_b), rows(keep_b), rows(masks_b)
-        ).result()[:bsz].cpu().numpy()
+        )[:bsz].cpu().numpy()
     return [adopted[row] for row in range(len(ids))]

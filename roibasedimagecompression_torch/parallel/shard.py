@@ -6,7 +6,7 @@ batch of the codec (split-score crops, SLIC regions, eps-CC palette rows,
 k-means splits) is independent row by row, so data parallelism is a
 placement decision: `shard_rows` splits a padded batch's rows over the
 mesh's data devices, and a call given sharded arguments (`call`, through
-`utils/dispatch.py submit`) runs each chunk on its owner device, with the
+`utils/dispatch.py call`) runs each chunk on its owner device, with the
 other tensor arguments copied there, and gathers the results on the mesh's
 first device.  The shards are issued one after another from the calling
 thread, on each device's current stream; a call that waits on its device

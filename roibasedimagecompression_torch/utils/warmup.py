@@ -8,7 +8,7 @@ CUDA kernels (nvcc, `ops/cuda/_build.py`) and the native host runtime
 (g++).  So:
 
   1. RECORD: with RHCCQ_RECORD_MANIFEST set (or `enable_recording()`), every
-     bucket call that goes through `utils/dispatch.py submit` logs (function,
+     bucket call that goes through `utils/dispatch.py call` logs (function,
      argument shapes and dtypes, literal arguments); `save` writes the
      deduplicated manifest.
   2. PREWARM: `prewarm` builds `_build/` (the kernels on a CUDA device, and

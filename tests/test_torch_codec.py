@@ -199,12 +199,12 @@ def test_unported_options_raise(monkeypatch):
 def test_cuda_encode_matches_cpu(seed):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    from roibasedimagecompression_torch.ops.cuda import epscc, slic_assign
+    from roibasedimagecompression_torch.ops.cuda import _build
 
     img = _noisy(seed, 256, 320, 10.0)
-    s0, e0 = slic_assign.launches, epscc.launches
+    s0, e0 = _build.launched["slic_assign"].total(), _build.launched["epscc"].total()
     gpu = rtt.encode(img)
-    assert slic_assign.launches > s0 and epscc.launches > e0
+    assert _build.launched["slic_assign"].total() > s0 and _build.launched["epscc"].total() > e0
     cpu = rtt.encode(img, device="cpu")
     _assert_same_encode(
         img, gpu, cpu, lambda: _torch_seg(img, torch.device("cuda")), lambda: _torch_seg(img, CPU)

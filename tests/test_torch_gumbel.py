@@ -15,6 +15,7 @@ import torch
 
 from roibasedimagecompression_torch.ops import cluster as TCL
 from roibasedimagecompression_torch.ops import prng
+from roibasedimagecompression_torch.ops.cuda import _build
 from roibasedimagecompression_torch.ops.cuda import gumbel as GUMBEL
 from roibasedimagecompression_torch.utils import timing
 
@@ -69,7 +70,7 @@ def test_gumbel_rows_checks_its_arguments():
     # The last: a CPU tensor (the CPU's noise is the host table).
     for bad_keys, m in ((keys[:, :1], 8), (keys.float(), 8), (keys[0], 8), (keys, 0), (keys, 8)):
         with pytest.raises(ValueError):
-            GUMBEL.gumbel_rows(bad_keys, m)
+            GUMBEL.gumbel_rows(bad_keys, m, 42)
 
 
 @pytest.mark.cuda
@@ -77,9 +78,9 @@ def test_gumbel_rows_checks_its_arguments():
 @pytest.mark.parametrize("m", [8, 1000, 16384, 131072])
 def test_cuda_gumbel_table_is_the_host_table(cuda, seed, m):
     for n in (1, 3, 256):
-        before = GUMBEL.launches, GUMBEL.launch_shapes[(seed, n, m)]
+        before = _launches(), _build.launched["gumbel"][(seed, n, m)]
         got = GUMBEL.gumbel_table(seed, m, n, cuda)
-        assert (GUMBEL.launches, GUMBEL.launch_shapes[(seed, n, m)]) == (before[0] + 1, before[1] + 1)
+        assert (_launches(), _build.launched["gumbel"][(seed, n, m)]) == (before[0] + 1, before[1] + 1)
         want = TCL._gumbel_table(seed, m, n)
         torch.cuda.synchronize()
         assert tuple(got.shape) == (n, m)
@@ -87,22 +88,27 @@ def test_cuda_gumbel_table_is_the_host_table(cuda, seed, m):
     TCL._gumbel_table.cache_clear()
 
 
-def _count(name: str) -> int:
-    return timing.counters().get(name, 0)
+def _launches() -> int:
+    return _build.launched["gumbel"].total()
+
+
+def _seedings() -> int:
+    c = timing.counters()
+    return c.get("kmeans_seed.kernel", 0) + c.get("kmeans_seed.loop", 0)
 
 
 def _card_and_cpu(cuda, pts, valid, ks, k_max, **kw):
     """Labels of kmeans_rows on the card and on the CPU; the card's call
-    counts one `kmeans_noise.card` seeding where it draws k-means++ noise."""
+    draws its k-means++ noise with one launch of the kernel a seeding
+    (`kmeans_seed.kernel` or `.loop`)."""
     plusplus = kw.get("plusplus", True)
     want = TCL.kmeans_rows(torch.from_numpy(pts), torch.from_numpy(valid), np.array(ks),
                            k_max=k_max, iters=10, seed=42, **kw).numpy()
     cw = {k: (v.to(cuda) if torch.is_tensor(v) else v) for k, v in kw.items()}
-    before = (_count("kmeans_noise.card"), _count("kmeans_noise.host"))
+    before = _launches(), _seedings()
     got = TCL.kmeans_rows(torch.from_numpy(pts).to(cuda), torch.from_numpy(valid).to(cuda),
                           np.array(ks), k_max=k_max, iters=10, seed=42, **cw).cpu().numpy()
-    assert (_count("kmeans_noise.card"), _count("kmeans_noise.host")) == (
-        before[0] + int(plusplus), before[1])
+    assert (_launches(), _seedings()) == (before[0] + int(plusplus), before[1] + int(plusplus))
     return got, want
 
 

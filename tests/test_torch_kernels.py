@@ -20,6 +20,7 @@ from roibasedimagecompression_torch import native as tnative
 from roibasedimagecompression_torch.ops import cluster as TCL
 from roibasedimagecompression_torch.ops import prng
 from roibasedimagecompression_torch.ops import slic as TSLIC
+from roibasedimagecompression_torch.ops.cuda import _build
 from roibasedimagecompression_torch.ops.cuda import epscc as TEPS
 from roibasedimagecompression_torch.ops.cuda import slic_assign as TSA
 
@@ -302,9 +303,9 @@ def test_cuda_slic_assign_matches_plain(cuda, rng, mp):
     feats = torch.from_numpy((rng.random((b, mp, 5)) * 200).astype(np.float32)).to(cuda)
     centers = feats[:, :k].clone()
     centers[:, 200:] = 1e6
-    before = TSA.launches
+    before = TSA.launch_shapes[("direct", b, mp, k)]
     got = TSA.slic_assign(feats, centers)
-    assert TSA.launches == before + 1
+    assert TSA.launch_shapes[("direct", b, mp, k)] == before + 1
     want = TSA.slic_assign_ref(feats, centers)
     torch.cuda.synchronize()
     assert bool((got == want).all())
@@ -331,9 +332,9 @@ def test_cuda_eps_driver_matches_plain(cuda, rng, n):
     interleaved groups per row."""
     args = _cuda_eps_problem(rng, 6, n)
     want, _ = TEPS.eps_components_rows(*args, sweep=TEPS.eps_sweep_ref)
-    before = TEPS.launches
+    before = _build.launched["epscc"][(6, n)]
     got, sweeps = TEPS.eps_components_rows(*(a.to(cuda) for a in args))
-    assert TEPS.launches == before + 1 and sweeps >= 1
+    assert _build.launched["epscc"][(6, n)] == before + 1 and sweeps >= 1
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
@@ -344,9 +345,9 @@ def test_cuda_eps_sweep_matches_plain(cuda, rng, n):
     lab = torch.from_numpy(rng.permutation(5 * n).reshape(5, n).astype(np.int32))
     args = (pts, lab, valid.to(torch.uint8), groups, eps2)
     want = TEPS.eps_sweep_ref(*args)
-    before = TEPS.sweep_launches
+    before = _build.launched["epscc"][("sweep", 5, n)]
     got = TEPS.eps_sweep(*(a.to(cuda) for a in args))
-    assert TEPS.sweep_launches == before + 1
+    assert _build.launched["epscc"][("sweep", 5, n)] == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 

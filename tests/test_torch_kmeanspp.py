@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from roibasedimagecompression_torch.ops import cluster as TCL
+from roibasedimagecompression_torch.ops.cuda import _build
 from roibasedimagecompression_torch.ops.cuda import gumbel as GUMBEL
 from roibasedimagecompression_torch.ops.cuda import kmeanspp as KPP
 from roibasedimagecompression_torch.utils import timing
@@ -38,6 +39,10 @@ def _count(name: str) -> int:
 
 def _seedings() -> tuple:
     return _count("kmeans_seed.kernel"), _count("kmeans_seed.loop")
+
+
+def _launches(name: str = "kmeanspp") -> int:
+    return _build.launched[name].total()
 
 
 def _bits(x) -> np.ndarray:
@@ -88,10 +93,10 @@ def test_kmeanspp_centers_checks_its_arguments():
 def test_kmeans_rows_on_the_cpu_seeds_with_the_loop(ks, k_max, m):
     rng = np.random.default_rng(0)
     pts, valid = kmeans_problem(rng, len(ks), m, [m, m - 100, m // 2])
-    before, launches = _seedings(), KPP.launches
+    before, launches = _seedings(), _launches()
     TCL.kmeans_rows(torch.from_numpy(pts), torch.from_numpy(valid), np.array(ks), k_max=k_max,
                     iters=2, seed=SEED)
-    assert _seedings() == (before[0], before[1] + 1) and KPP.launches == launches
+    assert _seedings() == (before[0], before[1] + 1) and _launches() == launches
     # The seeded random start and given centres seed nothing.
     for kw in ({"plusplus": False}, {"init_centers": torch.zeros((len(ks), k_max, 3))}):
         TCL.kmeans_rows(torch.from_numpy(pts), torch.from_numpy(valid), np.array(ks), k_max=k_max,
@@ -165,9 +170,10 @@ def test_cuda_kmeanspp_centers_are_the_loop(cuda, b, m, k_max, kind):
     args = [torch.from_numpy(x).to(cuda) for x in (pts, valid, ks)]
     noise = _noise(kind, m, max(int(ks.max()), 1), cuda)
     table = TCL._log32_table(cuda)
-    before = KPP.launches, KPP.launch_shapes[(b, m, noise.shape[0], k_max)]
+    key = (b, m, noise.shape[0], k_max)
+    before = _launches(), _build.launched["kmeanspp"][key]
     got = KPP.kmeanspp_centers(*args, noise, table, k_max)
-    assert (KPP.launches, KPP.launch_shapes[(b, m, noise.shape[0], k_max)]) == (before[0] + 1, before[1] + 1)
+    assert (_launches(), _build.launched["kmeanspp"][key]) == (before[0] + 1, before[1] + 1)
     want = TCL._plusplus_loop(*args, noise, table, k_max)
     torch.cuda.synchronize()
     np.testing.assert_array_equal(_bits(got), _bits(want))
@@ -191,10 +197,10 @@ def test_cuda_kmeans_rows_seed_with_the_kernel(cuda, case):
         pts, valid, ks = seeding_problem(rng, b, m, k_max, kind)
     want = TCL.kmeans_rows(torch.from_numpy(pts), torch.from_numpy(valid), ks, k_max=k_max, iters=10,
                            seed=SEED).numpy()
-    before = _seedings(), KPP.launches, _count("kmeans_noise.card")
+    before = _seedings(), _launches(), _launches("gumbel")
     got = TCL.kmeans_rows(torch.from_numpy(pts).to(cuda), torch.from_numpy(valid).to(cuda), ks,
                           k_max=k_max, iters=10, seed=SEED).cpu().numpy()
-    after = _seedings(), KPP.launches, _count("kmeans_noise.card")
+    after = _seedings(), _launches(), _launches("gumbel")
     assert after == ((before[0][0] + 1, before[0][1]), before[1] + 1, before[2] + 1)
     np.testing.assert_array_equal(got[valid], want[valid])
 
@@ -204,10 +210,10 @@ def test_cuda_weighted_seeding_takes_the_loop(cuda):
     rng = np.random.default_rng(11)
     ks, k_max, m = (5, 9, 2), 16, 256
     pts, valid, w = weighted_problem(rng, 3, m, [m, m - 10, m // 2], 300)
-    before = _seedings(), KPP.launches
+    before = _seedings(), _launches()
     TCL.kmeans_rows(torch.from_numpy(pts).to(cuda), torch.from_numpy(valid).to(cuda), np.array(ks),
                     k_max=k_max, iters=5, seed=SEED, weights=torch.from_numpy(w).to(cuda))
-    assert (_seedings(), KPP.launches) == ((before[0][0], before[0][1] + 1), before[1])
+    assert (_seedings(), _launches()) == ((before[0][0], before[0][1] + 1), before[1])
 
 
 @pytest.mark.cuda
@@ -218,8 +224,8 @@ def test_cuda_kmeans_host_many_launches_once_a_seeding(cuda):
     problems = [(rng.integers(0, 256, (n, 3)).astype(np.float32), k)
                 for n, k in ((10_000, 142), (20_000, 189), (3_000, 40), (50, 1))]
     want = TCL.kmeans_host_many(problems, "cpu", seed=SEED)
-    before = _seedings(), KPP.launches
+    before = _seedings(), _launches()
     got = TCL.kmeans_host_many(problems, cuda, seed=SEED)
-    assert (_seedings(), KPP.launches) == ((before[0][0] + 3, before[0][1]), before[1] + 3)
+    assert (_seedings(), _launches()) == ((before[0][0] + 3, before[0][1]), before[1] + 3)
     for g, w_ in zip(got, want):
         np.testing.assert_array_equal(g, w_)

@@ -249,11 +249,11 @@ def test_loop_and_batched_paths_agree_in_quality():
 def test_cuda_loop_matches_cpu():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    from roibasedimagecompression_torch.ops.cuda import epscc, slic_assign
+    from roibasedimagecompression_torch.ops.cuda import _build
 
     img = _noisy(39, 256, 320, 10.0)
     for config in (tcfg.CodecConfig(**SINGLE), tcfg.CodecConfig(batched=False)):
-        s0, e0 = slic_assign.launches, epscc.launches
+        s0, e0 = _build.launched["slic_assign"].total(), _build.launched["epscc"].total()
         gpu = rtt.encode(img, config)
-        assert slic_assign.launches > s0 and epscc.launches > e0
+        assert _build.launched["slic_assign"].total() > s0 and _build.launched["epscc"].total() > e0
         assert gpu == rtt.encode(img, config, device="cpu")

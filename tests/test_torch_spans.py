@@ -299,24 +299,31 @@ def test_kmeans_counts_its_lloyd_iterations():
 
 
 def test_kmeans_counts_where_its_noise_was_drawn():
-    """A k-means++ seeding on the CPU counts one `kmeans_noise.host`; given
-    initial centres or seeded random ones, no Gumbel noise is drawn and
-    neither counter moves."""
+    """A k-means++ seeding on the CPU draws its noise on the host, inside one
+    `kmeans.noise` span on a cache miss, and launches no kernel; given
+    initial centres or seeded random ones, no Gumbel noise is drawn and no
+    seeding is counted."""
+    from roibasedimagecompression_torch.ops.cuda import _build
+
     rng = np.random.default_rng(3)
     pts = torch.from_numpy(rng.integers(0, 256, (2, 64, 3)).astype(np.float32))
     valid = torch.ones((2, 64), dtype=torch.bool)
+    card = _build.launched["gumbel"].total()
+    TCL._gumbel_table.cache_clear()
 
-    def noise_counts():
-        c = timing.counters()
-        return c.get("kmeans_noise.host", 0), c.get("kmeans_noise.card", 0)
+    def noise():
+        c, s = timing.counters(), timing.stage_report()
+        return (c.get("kmeans_seed.loop", 0), c.get("kmeans_seed.kernel", 0),
+                s.get("kmeans.noise", {}).get("calls", 0), _build.launched["gumbel"].total() - card)
 
     TCL.kmeans_rows(pts, valid, [4, 5], k_max=8, seed=11)
-    assert noise_counts() == (1, 0)
+    assert noise() == (1, 0, 1, 0)
     TCL.kmeans_rows(pts, valid, [4, 5], k_max=8, seed=11, plusplus=False)
     TCL.kmeans_rows(pts, valid, [4, 5], k_max=8, init_centers=pts[:, :8])
-    assert noise_counts() == (1, 0)
+    assert noise() == (1, 0, 1, 0)
     TCL.kmeans_rows(pts, valid, [4, 5], k_max=8, seed=12, weights=torch.ones((2, 64)))
-    assert noise_counts() == (2, 0)
+    assert noise() == (2, 0, 2, 0)
+    TCL._gumbel_table.cache_clear()
 
 
 def test_kmeans_counts_its_uniform_starts():
@@ -336,7 +343,7 @@ def test_kmeans_counts_its_uniform_starts():
     assert uniform() == 1
     TCL.kmeans_rows(pts, valid, [4, 5], k_max=8, seed=12, plusplus=False)
     assert uniform() == 2
-    assert timing.counters()["kmeans_noise.host"] == 1
+    assert timing.counters()["kmeans_seed.loop"] == 1
 
 
 def test_kmeans_assign_pairs_count_valid_points_times_k():

@@ -471,12 +471,11 @@ def test_metrics_match_jax(seed, sigma):
 
 
 def test_shared_registries_survive_threads():
-    """The stage registry and the launch counters are written from the
-    stream's worker threads: no update may be lost."""
-    from roibasedimagecompression_torch.ops.cuda import epscc, slic_assign
+    """The stage registry, the counters and the kernels' launch record are
+    written from the stream's worker threads: no update may be lost."""
+    from roibasedimagecompression_torch.ops.cuda import _build
 
-    assert isinstance(epscc._count_lock, type(threading.Lock()))
-    assert isinstance(slic_assign._count_lock, type(threading.Lock()))
+    assert isinstance(_build._launched_lock, type(threading.Lock()))
     timing.reset_stages()
     n_threads, n_calls = 16, 400
     old = sys.getswitchinterval()
@@ -485,7 +484,7 @@ def test_shared_registries_survive_threads():
         def work():
             for _ in range(n_calls):
                 with timing.stage_timer("stress"):
-                    pass
+                    timing.count("stress", 1)
 
         threads = [threading.Thread(target=work) for _ in range(n_threads)]
         for t in threads:
@@ -496,4 +495,5 @@ def test_shared_registries_survive_threads():
     finally:
         sys.setswitchinterval(old)
     assert timing.stage_report()["stress"]["calls"] == n_threads * n_calls
+    assert timing.counters()["stress"] == n_threads * n_calls
     timing.reset_stages()

@@ -38,36 +38,14 @@ def test_calls_dispatch_inline():
         return x + 1
 
     a = np.zeros((4, 4), np.float32)
-    f1 = dispatch.submit(fn, a)
-    f2 = dispatch.submit(fn, a)
-    for f in (f1, f2):
-        assert isinstance(f, dispatch._Done)
-        assert f.done() and f.exception() is None
-        assert np.array_equal(f.result(), a + 1)
+    for _ in range(2):
+        got = dispatch.call(fn, a)
+        assert isinstance(got, np.ndarray) and np.array_equal(got, a + 1)
     assert len(calls) == 2
 
 
-def test_distinct_shapes_are_distinct_keys():
-    def fn(x):
-        return x
-
-    k1 = dispatch._call_key(fn, (np.zeros((2, 2), np.float32),), {})
-    k2 = dispatch._call_key(fn, (np.zeros((8, 2), np.float32),), {})
-    k3 = dispatch._call_key(fn, (torch.zeros((8, 2)),), {"chunk": 4})
-    assert len({k1, k2, k3}) == 3
-    assert dispatch.submit(fn, np.zeros((8, 2), np.float32)).result().shape == (8, 2)
-
-
-def test_container_and_callable_args_have_no_key():
-    def runner(fn, args, kwargs):
-        return fn(*args, **kwargs)
-
-    assert dispatch.submit(runner, lambda x: x * 2, [3], {}).result() == 6
-    assert dispatch.submit(runner, lambda x: x * 5, [3], {}).result() == 15
-    assert dispatch._call_key(runner, (lambda x: x, [3], {}), {}) is None
-
-
 def test_failed_call_is_kept_in_its_future():
+    """A call's exception is raised at the call; the next call runs anew."""
     boom = []
 
     def fn(x):
@@ -77,19 +55,90 @@ def test_failed_call_is_kept_in_its_future():
         return x
 
     a = np.zeros(3, np.float32)
-    f1 = dispatch.submit(fn, a)
-    assert isinstance(f1.exception(), RuntimeError)
-    with pytest.raises(RuntimeError):
-        f1.result()
-    assert dispatch.submit(fn, a).result() is a
+    with pytest.raises(RuntimeError, match="first call fails"):
+        dispatch.call(fn, a)
+    assert dispatch.call(fn, a) is a
 
 
-def test_resolve_mixes_futures_and_values():
-    def fn():
-        return 41
+def test_call_runs_once_a_shard_and_gathers():
+    """A sharded argument: one call a shard on its device, the other tensor
+    argument copied there, the tensors concatenated by rows and the counts
+    gathered by their maximum."""
+    from roibasedimagecompression_torch.parallel import mesh as TMESH
+    from roibasedimagecompression_torch.parallel import shard as SHARD
 
-    items = [dispatch.submit(fn), 1, dispatch.submit(fn)]
-    assert dispatch.resolve(items) == [41, 1, 41]
+    mesh = TMESH.make_mesh(2, devices=["cpu"] * 2)
+    x = torch.arange(12, dtype=torch.float32).reshape(6, 2)
+    shift = torch.tensor([10.0, 20.0])
+    seen = []
+
+    def fn(rows, add, *, scale):
+        seen.append(tuple(rows.shape))
+        return rows * scale + add, int(rows[0, 0])
+
+    got, count = dispatch.call(fn, SHARD.shard_rows(x, mesh), shift, scale=2.0)
+    assert seen == [(3, 2), (3, 2)]
+    assert torch.equal(got, x * 2.0 + shift) and count == 6
+    assert dispatch.call(fn, x, shift, scale=2.0)[1] == 0 and seen[-1] == (6, 2)
+
+
+def _double(x):
+    return x * 2
+
+
+def test_call_records_a_manifest_entry_only_while_recording(monkeypatch):
+    monkeypatch.setattr(warmup, "_entries", [])
+    monkeypatch.setattr(warmup, "_seen", set())
+    monkeypatch.setattr(warmup, "_recording", False)
+    a = torch.zeros((4, 2))
+    assert torch.equal(dispatch.call(_double, a), a)
+    assert warmup._entries == []
+    monkeypatch.setattr(warmup, "_recording", True)
+    dispatch.call(_double, a)
+    dispatch.call(_double, torch.ones((4, 2)))  # the same signature: one entry
+    assert warmup._entries == [{"fn": f"{__name__}:_double", "args": [
+        {"t": "arr", "shape": [4, 2], "dtype": "float32"}], "kwargs": {}}]
+
+
+def test_call_counts_operations_only_while_enabled():
+    was = flops.enabled()
+    flops.enable()
+    flops.reset()
+    try:
+        a, b = torch.ones(8, 16), torch.ones(16, 4)
+        assert torch.equal(dispatch.call(torch.matmul, a, b), torch.full((8, 4), 16.0))
+        assert flops.totals()[0] == 2 * 8 * 16 * 4
+        flops.disable()
+        dispatch.call(torch.matmul, a, b)
+        assert flops.totals()[0] == 2 * 8 * 16 * 4
+    finally:
+        flops.reset()
+        (flops.enable if was else flops.disable)()
+
+
+def test_kernel_launch_record():
+    """One Counter a kernel source, kept as the same object by its reset;
+    `slic_assign.launch_shapes` is the record's own."""
+    import collections
+
+    from roibasedimagecompression_torch.ops.cuda import _build
+    from roibasedimagecompression_torch.ops.cuda import slic_assign as TSA
+
+    assert set(_build.launched) == set(_build.KERNELS)
+    assert all(isinstance(c, collections.Counter) for c in _build.launched.values())
+    counters = dict(_build.launched)
+    assert TSA.launch_shapes is counters["slic_assign"]
+    saved = {name: collections.Counter(c) for name, c in counters.items()}
+    try:
+        TSA.launch_shapes[("direct", 1, 64, 8)] += 2
+        _build.launched["epscc"][("sweep", 1, 64)] += 1
+        assert TSA.launch_shapes.total() >= 2
+        _build.reset_launches()
+        assert all(_build.launched[name] is counters[name] for name in _build.KERNELS)
+        assert not any(_build.launched.values()) and not TSA.launch_shapes
+    finally:
+        for name, c in saved.items():
+            _build.launched[name].update(c)
 
 
 # ------------------------------------------------------------------ cachekey
