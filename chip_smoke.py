@@ -222,7 +222,8 @@ EPS_PACKED_SHAPES = ((7, 9999), (26, 1024), (1, 64), (48, 9999), (17, 4096), (12
 
 # Every shape a path launched a kernel at (read_counts adds to it); kernel 1's
 # as (form, B, MP, K).
-launched_shapes = {"slic_assign": set(), "eps_components": set(), "gumbel": set(), "kmeanspp": set()}
+launched_shapes = {"slic_assign": set(), "eps_components": set(), "gumbel": set(), "kmeanspp": set(),
+                   "resample": set()}
 SLIC_FORMS = ("expanded", "direct")
 
 
@@ -453,6 +454,56 @@ def check_kmeanspp(device, b, m, n_draws, k_max, timed=True):
         plain()
         rec["plain_host_ms"] = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
+    return rec
+
+
+# Kernel 5's calls on the main path, as ((h, w, nh, nw), rows): a default or
+# low-latency batch of 8 Kodak-sized frames, a CLIC-sized batch, one image.
+RESAMPLE_CALLS = ((((512, 768, 358, 537), 8),), (((1365, 2048, 273, 409), 8),),
+                  (((512, 768, 358, 537), 1),))
+
+
+def check_resample(device, call, timed=True):
+    """Kernel 5 on one call's rows, each a frame of a batch on the card as
+    the main path slices it, against the plain version on the card, bit for
+    bit; with `timed`, the kernel's card time (queued, with its descriptor
+    upload), the plain version's card time and the launches recorded."""
+    import numpy as np
+    import torch
+
+    from roibasedimagecompression_torch.ops.cuda import _build
+    from roibasedimagecompression_torch.ops.cuda import resample as RS
+
+    rng = np.random.default_rng(5)
+    rows, shapes = [], []
+    for (h, w, nh, nw), count in call:
+        batch = torch.from_numpy(rng.integers(0, 256, (count, h + 2, w + 3, 3), dtype=np.uint8)).to(device)
+        rows += [batch[k, 1 : h + 1, 2 : w + 2] for k in range(count)]
+        shapes += [(nh, nw)] * count
+    run = lambda: RS.resize_many(rows, shapes)  # noqa: E731
+    plain = lambda: [RS.resize_plain(r, s) for r, s in zip(rows, shapes)]  # noqa: E731
+    before = _build.launched["resample"].total()
+    got = run()
+    launches = _build.launched["resample"].total() - before
+    want = plain()
+    torch.cuda.synchronize()
+    n_diff = sum(int((a != b).sum()) for a, b in zip(got, want))
+    check(n_diff == 0 and launches == 1,
+          f"the resample kernel differs from the plain version in {n_diff} bytes, or took {launches} "
+          f"launches, at {call}")
+    macs = nbytes = 0
+    for r, (nh, nw) in zip(rows, shapes):
+        h, w = r.shape[:2]
+        macs += 3 * h * int(RS.coeff_table(w, nw)[:, 1].sum()) + 3 * nw * int(RS.coeff_table(h, nh)[:, 1].sum())
+        nbytes += 3 * (h * w + nh * nw)
+    t_ops = macs / PEAK_INT32_OPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    rec = {"call": [[list(shape), count] for shape, count in call], "bytes_differing": n_diff,
+           "launches": launches, "bytes": nbytes, "multiply_adds": macs,
+           "bound_ms": max(t_ops, t_bytes), "bound_by": "integer operations" if t_ops >= t_bytes else "bytes"}
+    if timed:
+        rec["ms"] = time_queued_ms(run)
+        rec["plain_ms"] = time_cuda(plain, reps=5, warmup=1)
     return rec
 
 
@@ -765,6 +816,7 @@ def read_counts():
     launched_shapes["eps_components"].update(loop)
     launched_shapes["gumbel"].update(rec["gumbel"])
     launched_shapes["kmeanspp"].update(rec["kmeanspp"])
+    launched_shapes["resample"].update(rec["resample"])
     counters = timing.counters()
 
     def by_form(form):
@@ -776,12 +828,16 @@ def read_counts():
                 "eps_rounds": counters.get("eps_rounds", 0),
                 "gumbel": rec["gumbel"].total(), "kmeanspp": rec["kmeanspp"].total(),
                 "kmeans_seed.kernel": counters.get("kmeans_seed.kernel", 0),
-                "kmeans_seed.loop": counters.get("kmeans_seed.loop", 0)}
+                "kmeans_seed.loop": counters.get("kmeans_seed.loop", 0),
+                "resample": rec["resample"].total(),
+                "seg.resize.card": counters.get("seg.resize.card", 0),
+                "seg.resize.host": counters.get("seg.resize.host", 0)}
     shapes = {
         "slic_assign (form, B, MP, K)": {str(k): v for k, v in sorted(sa.items())},
         "eps loop (B, N)": {str(k): v for k, v in sorted(loop.items())},
         "gumbel (seed, n_draws, m)": {str(k): v for k, v in sorted(rec["gumbel"].items())},
         "kmeanspp (B, m, n_draws, k_max)": {str(k): v for k, v in sorted(rec["kmeanspp"].items())},
+        "resample ((h, w, nh, nw), rows)": {str(k): v for k, v in sorted(rec["resample"].items())},
     }
     return launches, shapes
 
@@ -793,6 +849,13 @@ def check_seedings(launches, what) -> None:
     check(launches["kmeanspp"] == launches["kmeans_seed.kernel"] == launches["gumbel"]
           and launches["kmeans_seed.loop"] == 0,
           f"{what} seeded k-means++ off the kernel: {launches}")
+
+
+def check_resizes(launches, what) -> None:
+    """On a CUDA path every working resize is a row of a kernel-5 launch
+    (`seg.resize.card`) and none takes the host (`seg.resize.host`)."""
+    check(launches["seg.resize.host"] == 0 and (launches["resample"] > 0) == (launches["seg.resize.card"] > 0),
+          f"{what} resized SLIC's working images off the kernel: {launches}")
 
 
 def compare_with_cpu(results, images, datas, refs, config, device) -> None:
@@ -1422,8 +1485,11 @@ def run_nonative(deadline: float = 900.0) -> dict:
             rec = json.load(f)
     finally:
         os.unlink(out_path)
+    def as_tuple(x):  # JSON made the shape keys' nested tuples lists
+        return tuple(as_tuple(v) for v in x) if isinstance(x, list) else x
+
     for name, shapes in rec["launched_shapes"].items():
-        launched_shapes[name].update(tuple(s) for s in shapes)
+        launched_shapes[name].update(as_tuple(s) for s in shapes)
     return rec
 
 
@@ -1840,6 +1906,13 @@ def main() -> int:
               f"(queued), {r['step_us']:.2f} us a step; plain loop {r['plain_ms']:.2f} ms on the card, "
               f"{r['plain_host_ms']:.2f} ms host; bound {r['bound_ms']:.5f} ms ({r['bound_by']}) [{card}]")
 
+    k5 = [check_resample(device, call) for call in RESAMPLE_CALLS]
+    for r in k5:
+        print(f"[resample] ((h, w, nh, nw), rows) = {r['call']}: bytes equal the plain version's; "
+              f"kernel {r['ms']:.4f} ms (queued, {r['launches']} launch), plain {r['plain_ms']:.3f} ms on the "
+              f"card; bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes']} bytes, "
+              f"{r['multiply_adds']} multiply-adds) [{card}]")
+
     print(f"[time] phase 3 ended at {time.perf_counter() - t_script:.1f} s")
     # -- 4. kernel 2 -------------------------------------------------------------
     k2, k2_packed = check_eps_sweep(device), check_eps_packed(device)
@@ -1871,9 +1944,10 @@ def main() -> int:
     print(f"[time] phase 4 ended at {time.perf_counter() - t_script:.1f} s")
     # -- 5. one image at a time ---------------------------------------------------
     results, launches_one, shapes, stages, idle, images_one, datas_one = run_end_to_end(device)
-    for name in ("slic_assign_expanded", "eps_components", "eps_rounds", "gumbel", "kmeanspp"):
+    for name in ("slic_assign_expanded", "eps_components", "eps_rounds", "gumbel", "kmeanspp", "resample"):
         check(launches_one[name] > 0, f"the one-image path launched {name} no time")
     check_seedings(launches_one, "the one-image path")
+    check_resizes(launches_one, "the one-image path")
     print(f"[e2e] launches over {len(results)} encodes: {launches_one}")
     for name, hist in shapes.items():
         print(f"[e2e] launch shapes, {name}: {json.dumps(hist)}")
@@ -1904,9 +1978,10 @@ def main() -> int:
     runs = {}
     for label, config in (("default", cfg.CodecConfig()), ("low_latency", cfg.CodecConfig.low_latency())):
         br = runs[label] = run_batch(device, batches[0], config, profile=label == "default")
-        for name in ("slic_assign_expanded", "eps_components", "eps_rounds", "gumbel", "kmeanspp"):
+        for name in ("slic_assign_expanded", "eps_components", "eps_rounds", "gumbel", "kmeanspp", "resample"):
             check(br["launches"][name] > 0, f"the batch path ({label}) launched {name} no time")
         check_seedings(br["launches"], f"the batch path ({label})")
+        check_resizes(br["launches"], f"the batch path ({label})")
         print(f"[batch {label}] encode_many of 8 x 768x512: {br['seconds']:.3f} s warm, "
               f"{br['images_per_second']:.3f} images/s; bytes equal with RHCCQ_DEVICE_PAIRS=0 [{card}]")
         print(f"[batch {label}] launches: {br['launches']}")
@@ -1926,9 +2001,10 @@ def main() -> int:
     # its thread's CUDA streams.  No profiler window here: phase 7 measures
     # the idle share, and a traced stream took two minutes of the script.
     sr = run_stream(device, batches, runs["default"]["datas"])
-    for name in ("slic_assign", "eps_components", "eps_rounds", "gumbel", "kmeanspp"):
+    for name in ("slic_assign", "eps_components", "eps_rounds", "gumbel", "kmeanspp", "resample"):
         check(sr["launches"][name] > 0, f"the stream path launched {name} no time")
     check_seedings(sr["launches"], "the stream path")
+    check_resizes(sr["launches"], "the stream path")
     print(f"[stream] encode_stream of {len(batches)} batches of 8, workers=2: equal to sequential encode_many byte "
           f"for byte; {sr['seconds']:.3f} s, {sr['images_per_second']:.3f} images/s "
           f"(sequential: {sr['sequential_seconds']:.3f} s, {sr['sequential_images_per_second']:.3f} images/s) [{card}]")
@@ -1959,7 +2035,8 @@ def main() -> int:
     launches_cli = {name: sum(rec["launches"][name] for rec in cr["options"].values())
                     for name in ("slic_assign", "slic_assign_expanded", "slic_assign_direct",
                                  "eps_components", "eps_sweep_alone", "eps_rounds", "gumbel", "kmeanspp",
-                                 "kmeans_seed.kernel", "kmeans_seed.loop")}
+                                 "kmeans_seed.kernel", "kmeans_seed.loop", "resample", "seg.resize.card",
+                                 "seg.resize.host")}
 
     print(f"[time] phase 9 ended at {time.perf_counter() - t_script:.1f} s")
     # -- 10. canvas -----------------------------------------------------------------
@@ -2148,6 +2225,17 @@ def main() -> int:
           f"the plain loop's ({time.perf_counter() - t_cover:.1f} s)")
     for r in k4:
         r["on_path"] = tuple(r["shape"]) in launched_shapes["kmeanspp"]
+    t_cover = time.perf_counter()
+
+    def resample_key(r):
+        return tuple((tuple(shape), count) for shape, count in r["call"])
+
+    more_resample = sorted(launched_shapes["resample"] - {resample_key(r) for r in k5})
+    k5 += [check_resample(device, call, timed=False) for call in more_resample]
+    print(f"[cover] the resample kernel also checked at ((h, w, nh, nw), rows) {more_resample}: bytes equal "
+          f"the plain version's ({time.perf_counter() - t_cover:.1f} s)")
+    for r in k5:
+        r["on_path"] = resample_key(r) in launched_shapes["resample"]
     for r in k1:
         r["on_path"] = slic_key(r) in launched_shapes["slic_assign"]
     for r in k2_packed:
@@ -2268,8 +2356,21 @@ def main() -> int:
            "bound_ms": k4[1]["bound_ms"], "bound_by": k4[1]["bound_by"], "library_ms": None,
            "per_shape": [{k: r.get(k) for k in ("shape", "plan", "on_path", "ms", "step_us", "plain_ms",
                                                 "plain_host_ms", "bound_ms")} for r in k4]},
+        # Kernel 5 has no Pallas counterpart: the JAX package resizes SLIC's
+        # working images with PIL on the host.  Its headline is a default
+        # batch's call, 8 frames 512x768 -> 358x537; `ms` is queued card
+        # time with the descriptor upload, `plain_ms` the int32 PyTorch
+        # version on the card.
+        {"name": "resample", "route": "cuda",
+         "source": "roibasedimagecompression_torch/csrc/resample.cu",
+         "replaces": "none (roibasedimagecompression_tpu/models/segment.py resizes with PIL on the host)"}
+        | launches_of("resample")
+        | {"max_abs_err": 0.0, "shape": k5[0]["call"], "ms": k5[0]["ms"], "plain_ms": k5[0]["plain_ms"],
+           "bound_ms": k5[0]["bound_ms"], "bound_by": k5[0]["bound_by"], "library_ms": None,
+           "per_shape": [{k: r.get(k) for k in ("call", "on_path", "ms", "plain_ms", "bound_ms")} for r in k5]},
     ]
     print(f"[kmeanspp] launches over the smoke's paths: {launches_of('kmeanspp')}")
+    print(f"[resample] launches over the smoke's paths: {launches_of('resample')}")
     print(parity_line)
     print(json.dumps({"kernels": kernels}))
     print(card)

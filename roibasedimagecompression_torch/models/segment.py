@@ -25,8 +25,11 @@ from roibasedimagecompression_torch.ops import lbp as LBP
 from roibasedimagecompression_torch.ops import prng
 from roibasedimagecompression_torch.ops import slic as SLIC
 from roibasedimagecompression_torch.ops import xla_order as XO
+from roibasedimagecompression_torch.ops.cuda import resample as RS
 from roibasedimagecompression_torch.parallel import shard as SHARD
+from roibasedimagecompression_torch.utils import device as DEV
 from roibasedimagecompression_torch.utils import dispatch as DISPATCH
+from roibasedimagecompression_torch.utils import timing
 from roibasedimagecompression_torch.utils.timing import stage_timer
 
 
@@ -317,45 +320,22 @@ def optimal_segments(bbox_rgb: np.ndarray, bbox_mask: np.ndarray, device) -> int
 
 # ---------------------------------------------------------------------------
 # PIL's antialiased bilinear resample, in numpy (the card's machine has no
-# PIL).  Same fixed-point arithmetic as libImaging/Resample.c: double
+# PIL): the host route of SLIC's working resize.  Same fixed-point
+# arithmetic as libImaging/Resample.c and as the card's kernel
+# (`ops/cuda/resample.py`, whose coefficient tables it shares): double
 # coefficients normalised per output pixel, rounded to 22-bit integers,
 # horizontal pass first into uint8, then vertical.
 # ---------------------------------------------------------------------------
 
-_PRECISION_BITS = 32 - 8 - 2
-
-
-def _resample_coeffs(in_size: int, out_size: int):
-    """(bounds (out, 2) int64 [xmin, count], kk (out, ksize) int64)."""
-    scale = in_size / out_size
-    filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale  # bilinear filter support
-    ksize = int(math.ceil(support)) * 2 + 1
-    kk = np.zeros((out_size, ksize), np.float64)
-    bounds = np.zeros((out_size, 2), np.int64)
-    ss = 1.0 / filterscale
-    for xx in range(out_size):
-        center = (xx + 0.5) * scale
-        xmin = max(int(center - support + 0.5), 0)
-        xmax = min(int(center + support + 0.5), in_size) - xmin
-        x = np.arange(xmax, dtype=np.float64)
-        wv = np.maximum(1.0 - np.abs((x + xmin - center + 0.5) * ss), 0.0)
-        ww = 0.0
-        for v in wv:  # sequential sum, as the C loop
-            ww += v
-        if ww != 0.0:
-            wv = wv / ww
-        kk[xx, :xmax] = wv
-        bounds[xx] = (xmin, xmax)
-    scaled = kk * (1 << _PRECISION_BITS)
-    kint = np.where(scaled < 0, np.trunc(scaled - 0.5), np.trunc(scaled + 0.5)).astype(np.int64)
-    return bounds, kint
+_PRECISION_BITS = RS.PRECISION_BITS
+_resample_coeffs = RS.resample_coeffs
 
 
 def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     """One 8-bit resample pass along `axis` of an (h, w, c) uint8 array."""
     in_size = img.shape[axis]
-    bounds, kint = _resample_coeffs(in_size, out_size)
+    table = RS.coeff_table(in_size, out_size)
+    bounds, kint = table[:, :2].astype(np.int64), table[:, 2:].astype(np.int64)
     ksize = kint.shape[1]
     idx = np.minimum(bounds[:, :1] + np.arange(ksize)[None, :], in_size - 1)
     x = np.moveaxis(img, axis, 0).astype(np.int64)  # (in, other, c)
@@ -386,6 +366,12 @@ def _resize_nearest(arr: np.ndarray, shape: tuple) -> np.ndarray:
     return arr[rows][:, cols]
 
 
+def _on_card(dev: torch.device) -> bool:
+    """Whether `dev` is a CUDA device: the working resize's one question of
+    the device (the tests ask it of the CPU to follow the card's route)."""
+    return dev.type == "cuda"
+
+
 def region_segments_many(
     crops: list,
     masks: list,
@@ -399,7 +385,13 @@ def region_segments_many(
 ) -> list:
     """Batched SLIC at <= 500 px working resolution, labels upsampled back.
 
-    Returns a list of (bh_i, bw_i) int32 label maps, 0 outside mask.
+    A region over the working resolution is shrunk to it (stage
+    `seg.resize`, counters `seg.resize.card` / `seg.resize.host`, one a
+    row): on a CUDA device by one kernel launch for every such row
+    (`ops/cuda/resample.py`), reading rows with a `sources` entry from
+    `dbatch` and uploading the others' crops; elsewhere by the host's numpy
+    resample.  Both give PIL's bytes.  Returns a list of (bh_i, bw_i) int32
+    label maps, 0 outside mask.
     """
     n = len(crops)
     if sources is None:
@@ -420,18 +412,37 @@ def region_segments_many(
             if not small_mask.any():
                 out[i] = np.zeros((h, w), np.int32)
                 continue
-            work_imgs[i] = _resize_uint8(crops[i], (nh, nw))
             work_masks[i] = small_mask
             work_n[i] = max(1, math.ceil(n_segments[i] * scale * scale))
             scaled[i] = True
         else:
             # Unscaled rows slice their crop from the device batch; resized
-            # rows exist only on the host.
+            # rows keep their host-resized mask.
             work_imgs[i] = crops[i]
             work_masks[i] = masks[i]
             work_n[i] = n_segments[i]
             work_src[i] = sources[i]
         run_ids.append(i)
+
+    resized = [i for i in run_ids if scaled[i]]
+    with stage_timer("seg.resize"):
+        dev = DEV.or_cpu(device)
+        if resized and _on_card(dev):
+            rows = []
+            for i in resized:
+                if sources[i] is not None and dbatch is not None:
+                    k, top, left, h0, w0 = sources[i][:5]
+                    rows.append(dbatch.img[k, top : top + h0, left : left + w0])
+                else:
+                    rows.append(torch.from_numpy(np.ascontiguousarray(crops[i], np.uint8)).to(dev))
+            resized_imgs = RS.resize_many(rows, [work_masks[i].shape for i in resized])
+            for i, img in zip(resized, resized_imgs):
+                work_imgs[i] = img
+            timing.count("seg.resize.card", len(resized))
+        elif resized:
+            for i in resized:
+                work_imgs[i] = _resize_uint8(crops[i], work_masks[i].shape)
+            timing.count("seg.resize.host", len(resized))
 
     with stage_timer("seg.slic"):
         labels_small = SLIC.slic_many(

@@ -31,7 +31,7 @@ from roibasedimagecompression_torch.utils import cachekey
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-KERNELS = ("slic_assign", "epscc", "gumbel", "kmeanspp")
+KERNELS = ("slic_assign", "epscc", "gumbel", "kmeanspp", "resample")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel source -> {launch function: its argument types}; every launch
@@ -46,6 +46,7 @@ _LAUNCHERS = {
     },
     "gumbel": {"gumbel_launch": [_P, _P, _I, _I, _P]},
     "kmeanspp": {"kmeanspp_launch": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
+    "resample": {"resample_launch": [_P, _I, _I, _P]},
 }
 
 NVCC_FLAGS = [

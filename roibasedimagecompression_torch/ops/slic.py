@@ -304,14 +304,16 @@ def slic_many(
 
     Landscape regions are transposed to portrait (exact: distances, updates
     and connectivity are coordinate-order invariant) and grouped by padded
-    shape and centre cap (64 or 256).  Rows with a `sources` entry slice their
-    crop from the device batch `dbatch`, and their Lloyd loop runs on the
-    region-id raster's mask: where two regions of one kind overlap (a small
-    ROI region demoted into the non-ROI buffer zone) the raster holds the
-    later one, as in the JAX package; the centres and the connectivity pass
-    use `masks` on every path.  With `mesh`, a bucket's rows (padded to a
-    multiple of its data axis) split over its data devices.  Returns (h_i,
-    w_i) int32 label maps (0 outside mask, 1..n inside).
+    shape and centre cap (64 or 256).  An image is an (h_i, w_i, 3) uint8
+    array, or a tensor on `device` (a working image resized there).  Rows
+    with a `sources` entry slice their crop from the device batch `dbatch`,
+    and their Lloyd loop runs on the region-id raster's mask: where two
+    regions of one kind overlap (a small ROI region demoted into the non-ROI
+    buffer zone) the raster holds the later one, as in the JAX package; the
+    centres and the connectivity pass use `masks` on every path.  With
+    `mesh`, a bucket's rows (padded to a multiple of its data axis) split
+    over its data devices.  Returns (h_i, w_i) int32 label maps (0 outside
+    mask, 1..n inside).
     """
     n = len(images)
     out: list = [None] * n
@@ -353,6 +355,8 @@ def slic_many(
                 if sources[i] is not None and dbatch is not None:
                     rgb_b[row, :h0, :w0], raster = dbatch.crop(sources[i], transposed)
                     raster_masks.append((row, h0, w0, raster))
+                elif torch.is_tensor(images[i]):
+                    rgb_b[row, :h0, :w0] = images[i].transpose(0, 1) if transposed else images[i]
                 else:
                     img = np.asarray(images[i], np.uint8)
                     if transposed:
