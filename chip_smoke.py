@@ -6,7 +6,7 @@
 Phases, in order; any failed check exits non-zero:
   1. environment: card name and power limit, torch and CUDA versions, TF32
      switches, the libdeflate the container loads;
-  2. build: the native host runtime (g++) and the four CUDA kernel
+  2. build: the native host runtime (g++) and the six CUDA kernel
      sources (one nvcc per source, started together), with the seconds each
      took;
   3. kernel 1 (SLIC assign), in both its forms (the expanded form of the
@@ -28,7 +28,15 @@ Phases, in order; any failed check exits non-zero:
      the card, bit for bit, at tier 1's (1, 16384, 142) and (1, 32768, 189)
      and a split bucket (128, 1024, 16), timed (queued, and a step's time)
      beside the loop's card and host time; phases 5, 7 and 8 check that
-     every seeding was one launch of it and none took the loop;
+     every seeding was one launch of it and none took the loop; then
+     kernel 5 (SLIC's working resize) against `resize_plain` at the main
+     path's calls; then kernel 6 (Lloyd's assignment pass) against its
+     plain version `assign_plain` on the card, bit for bit, at tier 1's
+     CLIC row (1, 131072, k 900 / k_max 1024), its Kodak rows (1, 16384,
+     142 / 256) and (1, 32768, 189 / 256) and a split bucket (128, 1024,
+     k 2-16 / 16), timed (queued) beside the plain version's and the
+     library's card time and its bound; phases 5, 7 and 8 check that every
+     assignment pass was one launch of it and none took the host;
   4. kernel 2 (eps sweep) against its plain version, and the loop kernel
      against the plain loop and the host union-find, at the bucket shapes
      (B, N) = (64, 1024), (16, 4096), (4, 10240): labels must be equal.  It
@@ -128,7 +136,7 @@ Phases, in order; any failed check exits non-zero:
      runtime), counts read around each, each held by its digest; and the
      PSNR and SSIM of the batch's 8 decodes on the card against the file's;
  16. cover: every (form, B, MP, K), (B, N), Gumbel (seed, n_draws, m) and
-     k-means++ (B, m, n_draws, k_max)
+     k-means++ (B, m, n_draws, k_max), resample call and Lloyd (B, m, k_max)
      that phases 5 and 7-15 launched and phases 3 and 4 did not check is
      checked against the plain version now, so no path runs a kernel at a
      shape the run has not held;
@@ -223,7 +231,7 @@ EPS_PACKED_SHAPES = ((7, 9999), (26, 1024), (1, 64), (48, 9999), (17, 4096), (12
 # Every shape a path launched a kernel at (read_counts adds to it); kernel 1's
 # as (form, B, MP, K).
 launched_shapes = {"slic_assign": set(), "eps_components": set(), "gumbel": set(), "kmeanspp": set(),
-                   "resample": set()}
+                   "resample": set(), "lloyd_assign": set()}
 SLIC_FORMS = ("expanded", "direct")
 
 
@@ -504,6 +512,85 @@ def check_resample(device, call, timed=True):
     if timed:
         rec["ms"] = time_queued_ms(run)
         rec["plain_ms"] = time_cuda(plain, reps=5, warmup=1)
+    return rec
+
+
+# (B, m, k, k_max) kernel 6 is checked at before the paths run: tier 1's CLIC
+# row, its Kodak rows and a split bucket (k 2-16 a row there, "k" its
+# largest).  The cover phase checks every (B, m, k_max) a path launched
+# beyond these, at k = k_max in row 0.
+LLOYD_SHAPES = ((1, 131_072, 900, 1024), (1, 16_384, 142, 256), (1, 32_768, 189, 256), (128, 1_024, 16, 16))
+
+
+def lloyd_inputs(device, b, m, k, k_max, seed=0):
+    """Integer colours in clumps, every point valid in row 0 and a ragged
+    valid prefix in the others (padding zeroed), centres as Lloyd leaves
+    them (float32 means of integer colour sums), k in row 0 and 2..k in the
+    others."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    blobs = rng.integers(0, 256, (b, 40, 3))
+    pick = rng.integers(0, 40, (b, m))
+    pts = np.clip(np.take_along_axis(blobs, pick[..., None].repeat(3, -1), 1)
+                  + rng.integers(-30, 31, (b, m, 3)), 0, 255).astype(np.float32)
+    valid = np.arange(m)[None, :] < rng.integers(m // 2, m + 1, b)[:, None]
+    valid[0] = True
+    pts[~valid] = 0.0
+    counts = rng.integers(1, 300, (b, k_max, 1))
+    sums = rng.integers(0, 256, (b, k_max, 3)) * counts + rng.integers(0, counts, (b, k_max, 3))
+    centers = (sums.astype(np.float32) / counts.astype(np.float32)).astype(np.float32)
+    ks = rng.integers(min(2, k), k + 1, b)
+    ks[0] = k
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return t(pts), t(centers), t(ks.astype(np.int64))
+
+
+def check_lloyd(device, b, m, k, k_max, timed=True):
+    """Kernel 6 at (B, m, k_max) against its plain version (`ops/cuda/
+    lloyd_assign.py assign_plain`) on the same card, label for label, in one
+    launch; with `timed`, the kernel's card time (queued), the plain
+    version's and the library's (`(a2 + c2 - 2 bmm).argmin`, other bits)."""
+    import torch
+
+    from roibasedimagecompression_torch.ops.cuda import _build
+    from roibasedimagecompression_torch.ops.cuda import lloyd_assign as LLOYD
+
+    pts, centers, ks = lloyd_inputs(device, b, m, k, k_max)
+    run = lambda: LLOYD.assign_labels(pts, centers, ks, k_max)  # noqa: E731
+    plain = lambda: LLOYD.assign_plain(pts, centers, ks, k_max)  # noqa: E731
+    before = _build.launched["lloyd_assign"].total()
+    got = run()
+    launches = _build.launched["lloyd_assign"].total() - before
+    want = plain()
+    torch.cuda.synchronize()
+    n_diff = int((got != want).sum())
+    check(n_diff == 0 and launches == 1,
+          f"the Lloyd assignment kernel differs from the plain version in {n_diff} of {b * m} labels, or "
+          f"took {launches} launches, at (B, m, k, k_max) = ({b}, {m}, {k}, {k_max})")
+    # 9 operations a pair of a point and a centre below its row's k (the
+    # roofline reader's count), padded points included; the points and the
+    # used centres read once, k read, the labels written.
+    used = int(torch.clamp(ks, 0, k_max).sum())
+    ops = 9.0 * m * used
+    nbytes = 12.0 * b * m + 12.0 * used + 8.0 * b + 8.0 * b * m
+    split, blocks = LLOYD.plan(b, m, k_max, torch.cuda.get_device_properties(device).multi_processor_count)
+    rec = {"shape": [b, m, k, k_max], "plan": [split, blocks], "labels_differing": n_diff, "launches": launches,
+           "pairs": m * used}
+    rec["bound_ms"], rec["bound_by"] = bound_ms(ops, nbytes)
+    if timed:
+        valid_c = torch.arange(k_max, device=device)[None, :] < ks[:, None]
+
+        def library():
+            a2 = (pts * pts).sum(-1, keepdim=True)
+            c2 = torch.where(valid_c, (centers * centers).sum(-1), float("inf"))[:, None, :]
+            return (a2 + c2 - 2 * torch.bmm(pts, centers.transpose(1, 2))).argmin(-1)
+
+        rec["ms"] = time_queued_ms(run)
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        rec["plain_ms"] = time_cuda(plain, reps=3, warmup=1)
+        rec["library_ms"] = time_cuda(library, reps=5, warmup=1)
     return rec
 
 
@@ -817,6 +904,7 @@ def read_counts():
     launched_shapes["gumbel"].update(rec["gumbel"])
     launched_shapes["kmeanspp"].update(rec["kmeanspp"])
     launched_shapes["resample"].update(rec["resample"])
+    launched_shapes["lloyd_assign"].update(rec["lloyd_assign"])
     counters = timing.counters()
 
     def by_form(form):
@@ -831,13 +919,17 @@ def read_counts():
                 "kmeans_seed.loop": counters.get("kmeans_seed.loop", 0),
                 "resample": rec["resample"].total(),
                 "seg.resize.card": counters.get("seg.resize.card", 0),
-                "seg.resize.host": counters.get("seg.resize.host", 0)}
+                "seg.resize.host": counters.get("seg.resize.host", 0),
+                "lloyd_assign": rec["lloyd_assign"].total(),
+                "kmeans_assign.card": counters.get("kmeans_assign.card", 0),
+                "kmeans_assign.host": counters.get("kmeans_assign.host", 0)}
     shapes = {
         "slic_assign (form, B, MP, K)": {str(k): v for k, v in sorted(sa.items())},
         "eps loop (B, N)": {str(k): v for k, v in sorted(loop.items())},
         "gumbel (seed, n_draws, m)": {str(k): v for k, v in sorted(rec["gumbel"].items())},
         "kmeanspp (B, m, n_draws, k_max)": {str(k): v for k, v in sorted(rec["kmeanspp"].items())},
         "resample ((h, w, nh, nw), rows)": {str(k): v for k, v in sorted(rec["resample"].items())},
+        "lloyd_assign (B, m, k_max)": {str(k): v for k, v in sorted(rec["lloyd_assign"].items())},
     }
     return launches, shapes
 
@@ -856,6 +948,13 @@ def check_resizes(launches, what) -> None:
     (`seg.resize.card`) and none takes the host (`seg.resize.host`)."""
     check(launches["seg.resize.host"] == 0 and (launches["resample"] > 0) == (launches["seg.resize.card"] > 0),
           f"{what} resized SLIC's working images off the kernel: {launches}")
+
+
+def check_assigns(launches, what) -> None:
+    """On a CUDA path every Lloyd assignment pass (`kmeans_assign.card`) is
+    one launch of kernel 6 and none takes the host (`kmeans_assign.host`)."""
+    check(launches["kmeans_assign.host"] == 0 and launches["lloyd_assign"] == launches["kmeans_assign.card"],
+          f"{what} assigned k-means points off the kernel: {launches}")
 
 
 def compare_with_cpu(results, images, datas, refs, config, device) -> None:
@@ -1913,6 +2012,14 @@ def main() -> int:
               f"card; bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes']} bytes, "
               f"{r['multiply_adds']} multiply-adds) [{card}]")
 
+    k6 = [check_lloyd(device, *shape) for shape in LLOYD_SHAPES]
+    for r in k6:
+        print(f"[lloyd_assign] (B, m, k, k_max) = {tuple(r['shape'])}, plan (split, blocks a row) "
+              f"{tuple(r['plan'])}: labels equal the plain version's; kernel {r['ms']:.4f} ms (queued, "
+              f"{100 * r['share_of_bound']:.1f} % of the bound), plain {r['plain_ms']:.3f} ms, bmm+argmin "
+              f"{r['library_ms']:.3f} ms on the card; bound {r['bound_ms']:.5f} ms ({r['bound_by']}: "
+              f"{r['pairs']} pairs) [{card}]")
+
     print(f"[time] phase 3 ended at {time.perf_counter() - t_script:.1f} s")
     # -- 4. kernel 2 -------------------------------------------------------------
     k2, k2_packed = check_eps_sweep(device), check_eps_packed(device)
@@ -1944,10 +2051,12 @@ def main() -> int:
     print(f"[time] phase 4 ended at {time.perf_counter() - t_script:.1f} s")
     # -- 5. one image at a time ---------------------------------------------------
     results, launches_one, shapes, stages, idle, images_one, datas_one = run_end_to_end(device)
-    for name in ("slic_assign_expanded", "eps_components", "eps_rounds", "gumbel", "kmeanspp", "resample"):
+    for name in ("slic_assign_expanded", "eps_components", "eps_rounds", "gumbel", "kmeanspp", "resample",
+                 "lloyd_assign"):
         check(launches_one[name] > 0, f"the one-image path launched {name} no time")
     check_seedings(launches_one, "the one-image path")
     check_resizes(launches_one, "the one-image path")
+    check_assigns(launches_one, "the one-image path")
     print(f"[e2e] launches over {len(results)} encodes: {launches_one}")
     for name, hist in shapes.items():
         print(f"[e2e] launch shapes, {name}: {json.dumps(hist)}")
@@ -1978,10 +2087,12 @@ def main() -> int:
     runs = {}
     for label, config in (("default", cfg.CodecConfig()), ("low_latency", cfg.CodecConfig.low_latency())):
         br = runs[label] = run_batch(device, batches[0], config, profile=label == "default")
-        for name in ("slic_assign_expanded", "eps_components", "eps_rounds", "gumbel", "kmeanspp", "resample"):
+        for name in ("slic_assign_expanded", "eps_components", "eps_rounds", "gumbel", "kmeanspp", "resample",
+                     "lloyd_assign"):
             check(br["launches"][name] > 0, f"the batch path ({label}) launched {name} no time")
         check_seedings(br["launches"], f"the batch path ({label})")
         check_resizes(br["launches"], f"the batch path ({label})")
+        check_assigns(br["launches"], f"the batch path ({label})")
         print(f"[batch {label}] encode_many of 8 x 768x512: {br['seconds']:.3f} s warm, "
               f"{br['images_per_second']:.3f} images/s; bytes equal with RHCCQ_DEVICE_PAIRS=0 [{card}]")
         print(f"[batch {label}] launches: {br['launches']}")
@@ -2001,10 +2112,11 @@ def main() -> int:
     # its thread's CUDA streams.  No profiler window here: phase 7 measures
     # the idle share, and a traced stream took two minutes of the script.
     sr = run_stream(device, batches, runs["default"]["datas"])
-    for name in ("slic_assign", "eps_components", "eps_rounds", "gumbel", "kmeanspp", "resample"):
+    for name in ("slic_assign", "eps_components", "eps_rounds", "gumbel", "kmeanspp", "resample", "lloyd_assign"):
         check(sr["launches"][name] > 0, f"the stream path launched {name} no time")
     check_seedings(sr["launches"], "the stream path")
     check_resizes(sr["launches"], "the stream path")
+    check_assigns(sr["launches"], "the stream path")
     print(f"[stream] encode_stream of {len(batches)} batches of 8, workers=2: equal to sequential encode_many byte "
           f"for byte; {sr['seconds']:.3f} s, {sr['images_per_second']:.3f} images/s "
           f"(sequential: {sr['sequential_seconds']:.3f} s, {sr['sequential_images_per_second']:.3f} images/s) [{card}]")
@@ -2036,7 +2148,7 @@ def main() -> int:
                     for name in ("slic_assign", "slic_assign_expanded", "slic_assign_direct",
                                  "eps_components", "eps_sweep_alone", "eps_rounds", "gumbel", "kmeanspp",
                                  "kmeans_seed.kernel", "kmeans_seed.loop", "resample", "seg.resize.card",
-                                 "seg.resize.host")}
+                                 "seg.resize.host", "lloyd_assign", "kmeans_assign.card", "kmeans_assign.host")}
 
     print(f"[time] phase 9 ended at {time.perf_counter() - t_script:.1f} s")
     # -- 10. canvas -----------------------------------------------------------------
@@ -2236,6 +2348,13 @@ def main() -> int:
           f"the plain version's ({time.perf_counter() - t_cover:.1f} s)")
     for r in k5:
         r["on_path"] = resample_key(r) in launched_shapes["resample"]
+    t_cover = time.perf_counter()
+    more_lloyd = sorted(launched_shapes["lloyd_assign"] - {(r["shape"][0], r["shape"][1], r["shape"][3]) for r in k6})
+    k6 += [check_lloyd(device, b, m, k_max, k_max, timed=False) for b, m, k_max in more_lloyd]
+    print(f"[cover] the Lloyd assignment kernel also checked at (B, m, k_max) {more_lloyd}: labels equal "
+          f"the plain version's ({time.perf_counter() - t_cover:.1f} s)")
+    for r in k6:
+        r["on_path"] = (r["shape"][0], r["shape"][1], r["shape"][3]) in launched_shapes["lloyd_assign"]
     for r in k1:
         r["on_path"] = slic_key(r) in launched_shapes["slic_assign"]
     for r in k2_packed:
@@ -2368,9 +2487,23 @@ def main() -> int:
         | {"max_abs_err": 0.0, "shape": k5[0]["call"], "ms": k5[0]["ms"], "plain_ms": k5[0]["plain_ms"],
            "bound_ms": k5[0]["bound_ms"], "bound_by": k5[0]["bound_by"], "library_ms": None,
            "per_shape": [{k: r.get(k) for k in ("call", "on_path", "ms", "plain_ms", "bound_ms")} for r in k5]},
+        # Kernel 6 has no Pallas counterpart: the JAX package assigns in XLA.
+        # Its headline is tier 1's CLIC row (1, 131072, 900, 1024); `ms` is
+        # queued card time, `plain_ms` the float64-emulated chunk loop on
+        # the card, `library_ms` bmm + argmin (other bits).
+        {"name": "lloyd_assign", "route": "cuda",
+         "source": "roibasedimagecompression_torch/csrc/lloyd_assign.cu",
+         "replaces": "none (roibasedimagecompression_tpu/ops/cluster.py kmeans assigns in XLA)"}
+        | launches_of("lloyd_assign")
+        | {"max_abs_err": 0.0, "shape": k6[0]["shape"], "ms": k6[0]["ms"], "plain_ms": k6[0]["plain_ms"],
+           "bound_ms": k6[0]["bound_ms"], "bound_by": k6[0]["bound_by"], "library_ms": k6[0]["library_ms"],
+           "per_shape": [{k: r.get(k) for k in ("shape", "plan", "on_path", "ms", "share_of_bound", "plain_ms",
+                                                "library_ms", "bound_ms")} for r in k6]},
     ]
     print(f"[kmeanspp] launches over the smoke's paths: {launches_of('kmeanspp')}")
     print(f"[resample] launches over the smoke's paths: {launches_of('resample')}")
+    print(f"[lloyd_assign] launches over the smoke's paths: {launches_of('lloyd_assign')}; kmeans_assign.card "
+          f"{launches_of('kmeans_assign.card')['launches']}, kmeans_assign.host {launches_of('kmeans_assign.host')['launches']}")
     print(parity_line)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -10,7 +10,8 @@ ops/cuda/gumbel.py, elsewhere by `_gumbel_table` on the host; the unweighted
 k-means++ steps on a CUDA device by the kernel of ops/cuda/kmeanspp.py,
 elsewhere by the plain loop `_plusplus_loop`), the expanded
 |a|^2 + |b|^2 - 2ab distance with XLA's fused multiply-adds, first-index
-argmin and early-exit Lloyd.
+argmin (on a CUDA device the kernel of ops/cuda/lloyd_assign.py, elsewhere
+its plain version) and early-exit Lloyd.
 
 With per-point weights (the weighted oversized split, pixel counts) the
 k-means++ draws go in proportion to w * d^2 and the centres are weighted
@@ -36,12 +37,12 @@ from roibasedimagecompression_torch.ops.colors import fma32
 from roibasedimagecompression_torch.ops.cuda import epscc as EPS
 from roibasedimagecompression_torch.ops.cuda import gumbel as GUMBEL
 from roibasedimagecompression_torch.ops.cuda import kmeanspp as KPP
+from roibasedimagecompression_torch.ops.cuda import lloyd_assign as LLOYD
 from roibasedimagecompression_torch.parallel import shard as SHARD
 from roibasedimagecompression_torch.utils import dispatch as DISPATCH
 from roibasedimagecompression_torch.utils import timing
 from roibasedimagecompression_torch.utils.timing import stage_timer
 
-_BIG = 3.4e38
 _MAX_D2 = 3 * 255 * 255  # the largest squared distance of two uint8 colours
 
 
@@ -95,18 +96,6 @@ def _kmeans_noise(seed: int, m: int, n_draws: int, dev: torch.device) -> torch.T
         with stage_timer("kmeans.noise"):
             return GUMBEL.gumbel_table(seed, m, n_draws, dev)
     return torch.tensor(_gumbel_table(seed, m, n_draws), device=dev)
-
-
-def _sq_dists(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """(B, m, 3) x (B, k, 3) -> (B, m, k) squared distances, with the
-    arithmetic of XLA's CPU lowering of ops/cluster._sq_dists: fused
-    multiply-add chains for |c|^2 and a.c, then (|a|^2 + |c|^2) - 2 a.c."""
-    a2 = fma32(a[..., 2], a[..., 2], fma32(a[..., 1], a[..., 1], a[..., 0] * a[..., 0]))
-    c2 = fma32(c[..., 2], c[..., 2], fma32(c[..., 1], c[..., 1], c[..., 0] * c[..., 0]))
-    a_ = a[:, :, None, :]
-    c_ = c[:, None, :, :]
-    ab = fma32(a_[..., 2], c_[..., 2], fma32(a_[..., 1], c_[..., 1], a_[..., 0] * c_[..., 0]))
-    return torch.clamp((a2[:, :, None] + c2[:, None, :]) - 2.0 * ab, min=0.0)
 
 
 def _fma_tiny(a: torch.Tensor, b: torch.Tensor, c: float) -> torch.Tensor:
@@ -249,8 +238,9 @@ def _weighted_sums(labels: torch.Tensor, w: torch.Tensor, points: torch.Tensor,
 
 
 def _on_card(dev: torch.device) -> bool:
-    """Whether `dev` is a CUDA device: the k-means++ route's one question of
-    the device (the tests ask it of a CPU tensor to follow the card's route)."""
+    """Whether `dev` is a CUDA device: the one question the k-means++ and
+    assignment routes ask of the device (the tests ask it of a CPU tensor to
+    follow the card's route)."""
     return dev.type == "cuda"
 
 
@@ -326,20 +316,29 @@ def kmeans_rows(
     to w * d^2 (the first in proportion to w) and the centres are weighted
     means; the assignment is unchanged.
 
+    Every assignment pass, each Lloyd pass and the last, labels every
+    point of the padded batch with its nearest valid centre, first index on
+    ties.  On a CUDA device it is one launch of the kernel
+    (`ops/cuda/lloyd_assign.py assign_labels`) over the whole batch; on the
+    CPU its plain version (`assign_plain`), which computes the same
+    distances over chunks of points.  The labels are the same on both.
+
     Traced as the spans `kmeans.seed` (the initial centres) and
     `kmeans.lloyd` (the loop and the last assignment), and the counters
     `kmeans_iters` (Lloyd iterations run), `kmeans_assign_pairs` (over every
     assignment pass, the Lloyd passes and the last: the sum over rows of
     valid points x that row's k, unpadded), `kmeans_seed.kernel` /
     `kmeans_seed.loop` (one per k-means++ seeding, by route: the card's
-    kernel, or the plain loop on the CPU and for weighted seeding) and
-    `kmeans_init.uniform` (one per uniform start; `utils/timing.py`).
+    kernel, or the plain loop on the CPU and for weighted seeding),
+    `kmeans_assign.card` / `kmeans_assign.host` (one per assignment pass, by
+    route) and `kmeans_init.uniform` (one per uniform start;
+    `utils/timing.py`).
     """
     b, m, _ = points.shape
     dev = points.device
+    on_card = _on_card(dev)
     k = torch.as_tensor(np.asarray(k, np.int64), device=dev)
     kvec = k.cpu().numpy()
-    center_valid = torch.arange(k_max, device=dev)[None, :] < k[:, None]
     rows = torch.arange(b, device=dev)
     key = prng.prng_key(seed)
     w_pts = None
@@ -354,7 +353,7 @@ def kmeans_rows(
             n_draws = max(int(kvec.max()), 1)
             log_d2 = _log32_table(dev)
             noise = _kmeans_noise(int(seed), m, n_draws, dev)
-            if _on_card(dev) and w_pts is None:
+            if on_card and w_pts is None:
                 timing.count("kmeans_seed.kernel", 1)
                 centers = KPP.kmeanspp_centers(points.contiguous(), valid.contiguous(), k, noise,
                                                log_d2, k_max)
@@ -371,15 +370,12 @@ def kmeans_rows(
             take = order[:, torch.arange(k_max, device=dev) % m]
             centers = points[rows[:, None], take]
 
-    chunk = max(1, (1 << 23) // max(1, b * k_max))
-
     def assign(c):
-        out = torch.empty((b, m), dtype=torch.int64, device=dev)
-        for s in range(0, m, chunk):
-            d2 = _sq_dists(points[:, s : s + chunk], c)
-            d2 = torch.where(center_valid[:, None, :], d2, torch.full((), _BIG, device=dev))
-            out[:, s : s + chunk] = torch.argmin(d2, dim=2)
-        return out
+        if on_card:
+            timing.count("kmeans_assign.card", 1)
+            return LLOYD.assign_labels(points.contiguous(), c.contiguous(), k, k_max)
+        timing.count("kmeans_assign.host", 1)
+        return LLOYD.assign_plain(points, c, k, k_max)
 
     validf = valid.float()
     pts_v = points * validf[..., None]
@@ -388,7 +384,8 @@ def kmeans_rows(
         counts = torch.zeros((b, k_max), dtype=torch.float32, device=dev)
         if w_pts is None:
             # Integer colours, unweighted: the sums are exact in float32
-            # (<= 255 * 65536 < 2^24), so their order is irrelevant.
+            # while every centre has at most 65,793 members (255 * 65,793 <
+            # 2^24), and then their order is irrelevant.
             sums = torch.zeros((b, k_max, 3), dtype=torch.float32, device=dev)
             sums.scatter_add_(1, labels[..., None].expand(b, m, 3), pts_v)
             counts.scatter_add_(1, labels, validf)

@@ -11,7 +11,8 @@ so under the loader's lock, as `utils/warmup.py prewarm` calls it).
 Every launch goes through `launch`, which loads the library, launches on the
 device's current stream and records the launch in `launched`: for each
 kernel source a `Counter` from the wrapper's shape key of a launch to the
-count of such launches since the last `reset_launches`.
+count of such launches since the last `reset_launches`.  `check_tensor` is
+the wrappers' common check of a tensor argument.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from roibasedimagecompression_torch.utils import cachekey
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-KERNELS = ("slic_assign", "epscc", "gumbel", "kmeanspp", "resample")
+KERNELS = ("slic_assign", "epscc", "gumbel", "kmeanspp", "resample", "lloyd_assign")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel source -> {launch function: its argument types}; every launch
@@ -47,6 +48,7 @@ _LAUNCHERS = {
     "gumbel": {"gumbel_launch": [_P, _P, _I, _I, _P]},
     "kmeanspp": {"kmeanspp_launch": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
     "resample": {"resample_launch": [_P, _I, _I, _P]},
+    "lloyd_assign": {"lloyd_assign_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
 }
 
 NVCC_FLAGS = [
@@ -62,6 +64,16 @@ build_log: dict = {}
 # reader may keep a reference to one Counter.
 launched = {name: collections.Counter() for name in KERNELS}
 _launched_lock = threading.Lock()  # encode_stream launches from several threads
+
+
+def check_tensor(name: str, t, dtype, shape) -> None:
+    """Raise ValueError unless `t` is a contiguous tensor of `dtype` and
+    `shape`: a wrapper's check of what its kernel takes."""
+    if not torch.is_tensor(t) or t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        got = (tuple(t.shape), t.dtype) if torch.is_tensor(t) else type(t).__name__
+        raise ValueError(f"{name} must be {dtype} of shape {tuple(shape)}, got {got}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def _nvcc() -> str:

@@ -44,14 +44,6 @@ def plan(m: int) -> tuple:
     return cluster, 1024, slice_, slice_ <= _ON_CHIP
 
 
-def _check(name, t, dtype, shape):
-    if not torch.is_tensor(t) or t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        got = (tuple(t.shape), t.dtype) if torch.is_tensor(t) else type(t).__name__
-        raise ValueError(f"{name} must be {dtype} of shape {tuple(shape)}, got {got}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def kmeanspp_centers(points: torch.Tensor, valid: torch.Tensor, k: torch.Tensor, noise: torch.Tensor,
                      log_table: torch.Tensor, k_max: int, weights=None) -> torch.Tensor:
     """(B, k_max, 3) float32 k-means++ initial centres of every row, one
@@ -75,13 +67,13 @@ def kmeanspp_centers(points: torch.Tensor, valid: torch.Tensor, k: torch.Tensor,
     k_max = operator.index(k_max)
     if not (b >= 1 and 1 <= m < 2**31 and n_draws >= 1 and k_max >= 1):
         raise ValueError(f"need B >= 1, 1 <= m < 2^31, n_draws >= 1 and k_max >= 1, got {b}, {m}, {n_draws}, {k_max}")
-    _check("points", points, torch.float32, (b, m, 3))
-    _check("valid", valid, torch.bool, (b, m))
-    _check("k", k, torch.int64, (b,))
-    _check("noise", noise, torch.float32, (n_draws, m))
+    _build.check_tensor("points", points, torch.float32, (b, m, 3))
+    _build.check_tensor("valid", valid, torch.bool, (b, m))
+    _build.check_tensor("k", k, torch.int64, (b,))
+    _build.check_tensor("noise", noise, torch.float32, (n_draws, m))
     if not torch.is_tensor(log_table) or log_table.dim() != 1 or log_table.numel() < 1:
         raise ValueError("log_table must be a non-empty 1-D tensor")
-    _check("log_table", log_table, torch.float32, log_table.shape)
+    _build.check_tensor("log_table", log_table, torch.float32, log_table.shape)
     dev = points.device
     if dev.type != "cuda" or any(t.device != dev for t in (valid, k, noise, log_table)):
         raise ValueError(f"every tensor must be on points' CUDA device, got {dev} "

@@ -290,10 +290,13 @@ def test_kmeans_counts_its_lloyd_iterations():
     init[0, 1, 0] = 1.0
     labels = TCL.kmeans_rows(pts, valid, [2], k_max=2, init_centers=init)
     assert labels.tolist() == [[0, 0, 1, 1]]
-    # 4 points x 2 centres, in 3 passes and the last assignment
-    assert timing.counters() == {"kmeans_iters": 3, "kmeans_assign_pairs": 4 * 2 * 4}
+    # 4 points x 2 centres, in 3 passes and the last assignment, each on
+    # the host (the CPU's route)
+    assert timing.counters() == {"kmeans_iters": 3, "kmeans_assign_pairs": 4 * 2 * 4,
+                                 "kmeans_assign.host": 4}
     TCL.kmeans_rows(pts, valid, [2], k_max=2, init_centers=init, iters=2)
-    assert timing.counters() == {"kmeans_iters": 5, "kmeans_assign_pairs": 32 + 4 * 2 * 3}
+    assert timing.counters() == {"kmeans_iters": 5, "kmeans_assign_pairs": 32 + 4 * 2 * 3,
+                                 "kmeans_assign.host": 7}
     timing.reset_stages()
     assert timing.counters() == {}
 
