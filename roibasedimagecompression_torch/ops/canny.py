@@ -33,6 +33,8 @@ from roibasedimagecompression_torch.ops import hist as H
 from roibasedimagecompression_torch.ops.colors import fma32
 from roibasedimagecompression_torch.parallel import shard as SHARD
 from roibasedimagecompression_torch.utils import device as DEV
+from roibasedimagecompression_torch.utils import timing
+from roibasedimagecompression_torch.utils.timing import stage_timer
 
 _TAN22 = float(np.float32(math.tan(math.pi / 8.0)))
 _TAN67 = float(np.float32(math.tan(3.0 * math.pi / 8.0)))
@@ -314,13 +316,28 @@ def select_thresholds_pair(image_rgb: np.ndarray, device=None):
     return _best_pair(gray[0], cands[0])
 
 
-def select_thresholds_many(images: np.ndarray, device=None):
+def select_thresholds_many(images: np.ndarray, device=None, pool=None):
     """Adaptive thresholds of a (B, h, w, 3) uint8 batch: (lows (B,), highs
-    (B,)) float32 arrays.  One host analysis and scoring per image, or
-    without the runtime one device analysis of the batch and a device
-    scoring per image."""
+    (B,)) float32 arrays.  One host analysis and scoring per image, on
+    `pool` (an executor; the calls release the interpreter lock) when given,
+    else on the calling thread; or without the runtime one device analysis
+    of the batch and a device scoring per image.
+
+    Each host analysis is a `thresholds.image` span and adds one to the
+    counter of its route, `thresholds.pool` or `thresholds.serial`."""
     if native.available():
-        pairs = [_select_thresholds_native(im) for im in images]
+        route = "thresholds.serial" if pool is None else "thresholds.pool"
+
+        def one(im):
+            with stage_timer("thresholds.image"):
+                pair = _select_thresholds_native(im)
+            timing.count(route)
+            return pair
+
+        if pool is None:
+            pairs = [one(im) for im in images]
+        else:
+            pairs = list(pool.map(timing.carry(one), images))
     else:
         batch = torch.from_numpy(np.ascontiguousarray(images, np.uint8)).to(DEV.or_cpu(device))
         gray, cands = _edge_analysis_gray(batch)

@@ -10,8 +10,10 @@ The counterpart of the JAX package's `parallel/stream.py`.  Three levers:
      built on the device from the pixels the segment stage left there
      (ops/pairs.py).
   3. Host-side container packing (DEFLATE releases the interpreter lock) runs
-     in a thread pool, and `encode_stream` runs whole batches on worker
-     threads, each sending its device work to a CUDA stream of its own.
+     in a thread pool, the frontend's per-image native work (Canny
+     thresholds, ROI masks) in another, and `encode_stream` runs whole
+     batches on worker threads, each sending its device work to a CUDA
+     stream of its own.
 
 With `mesh` (`parallel/mesh.py make_mesh`), the data-parallel deployment
 path: every bucketed device stage (split score, SLIC, the eps-CC rows, the
@@ -59,6 +61,30 @@ def _io_pool() -> concurrent.futures.ThreadPoolExecutor:
                 max_workers=4, thread_name_prefix="rhccq-io"
             )
         return _IO_POOL
+
+
+# One process-wide frontend pool runs the batch frontend's per-image native
+# work (Canny thresholds, then ROI masks); encode_stream's _frontend_done gate
+# lets one batch's frontend run at a time, so one pool does not oversubscribe.
+_FRONTEND_POOL: concurrent.futures.ThreadPoolExecutor | None = None
+_FRONTEND_LOCK = threading.Lock()
+
+
+def _frontend_pool() -> concurrent.futures.ThreadPoolExecutor | None:
+    """The frontend pool, one thread a usable core up to 8; None without
+    the runtime (the masks are then a device graph, the thresholds one
+    batched device analysis) or on one usable core, where a pool only adds
+    switches."""
+    cores = len(os.sched_getaffinity(0))
+    if not native.available() or cores <= 1:
+        return None
+    global _FRONTEND_POOL
+    with _FRONTEND_LOCK:
+        if _FRONTEND_POOL is None:
+            _FRONTEND_POOL = concurrent.futures.ThreadPoolExecutor(
+                max_workers=min(8, cores), thread_name_prefix="rhccq-frontend"
+            )
+        return _FRONTEND_POOL
 
 
 def _mesh_device(device, mesh) -> torch.device:
@@ -114,11 +140,12 @@ def _segment_stack(batch: np.ndarray, config: cfg.CodecConfig, device,
         roi_masks = np.ones((b, h, w), bool)
         nonroi_masks = np.zeros((b, h, w), bool)
     else:
+        pool = _frontend_pool()
         with stage_timer("s.thresholds"):
             if config.fast_edges:
                 lows, highs = CANNY.fast_thresholds_many(batch, device)
             else:
-                lows, highs = CANNY.select_thresholds_many(batch, device)
+                lows, highs = CANNY.select_thresholds_many(batch, device, pool)
         with stage_timer("s.roi_masks"):
             # Without the runtime the masks are a device graph, and a mesh
             # runs image k on the owner of its data shard.
@@ -131,12 +158,10 @@ def _segment_stack(batch: np.ndarray, config: cfg.CodecConfig, device,
                 return RF.roi_masks_fast(batch[k], config, lows[k], highs[k], owners[k])
 
             # The mask chain is native host work that releases the
-            # interpreter lock; on one core a pool only adds switches.
-            # Without the runtime it is the device graph, one image at a
-            # time.
-            if native.available() and (os.cpu_count() or 1) > 1:
-                with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
-                    masks = list(pool.map(one_mask, range(b)))
+            # interpreter lock.  Without the runtime it is the device graph,
+            # one image at a time.
+            if pool is not None:
+                masks = list(pool.map(timing.carry(one_mask), range(b)))
             else:
                 masks = [one_mask(k) for k in range(b)]
             roi_masks = np.stack([m[0] for m in masks])
